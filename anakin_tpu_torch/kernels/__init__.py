@@ -1,0 +1,4 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version."""
+
+from .conv_int8 import conv3x3_int8, conv3x3_int8_plain  # noqa: F401
+from .matmul_int8 import matmul_int8, matmul_int8_plain  # noqa: F401

@@ -1,0 +1,201 @@
+"""int8 GEMM with a fused dequant / bias / residual / activation / requant
+epilogue: the port of `anakin_tpu/kernels/matmul_int8.py::matmul_int8`.
+
+    acc = a @ b                                     (int32, exact)
+    y   = act(acc * (in_scale * w_scale[n]) + bias[n] + residual[m, n])
+    out = clip(round(y * (1 / out_scale)), -127, 127) as int8,  or y as
+          float32 / bfloat16 when there is no out_scale
+
+On a CUDA tensor `matmul_int8` launches the hand-written Hopper kernel in
+`csrc/matmul_int8.cu` (what bounds it and what its design does about that
+are in that file's header); on a CPU tensor it runs `matmul_int8_plain`,
+the same arithmetic in plain PyTorch.  There is no fallback from one to the
+other.
+
+Numerics follow the Pallas kernel bit for bit: the scale row is
+`in_scale * w_scale` in float32, every epilogue step is a separately
+rounded float32 operation, the requant multiplies by the float32 reciprocal
+of `out_scale` (the op path's `quantize_array` divides instead), and
+rounding is half-to-even.  An int8 residual is dequantized with
+`residual_scale` inside the epilogue, as the op path does before calling
+the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["matmul_int8", "matmul_int8_plain", "epilogue_plain"]
+
+_ACTS = {None: 0, "identity": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
+         "sigmoid": 4, "tanh": 5}
+_RES_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+_OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 product.  int64 on the CPU; on the card in float64, which
+    is exact below 2**53 (cuBLAS has no integer mm)."""
+    if a.device.type == "cpu":
+        return a.to(torch.int64) @ b.to(torch.int64)
+    return a.to(torch.float64) @ b.to(torch.float64)
+
+
+def epilogue_plain(acc, scale_row, bias, residual, residual_scale, activation,
+                   act_alpha, out_scale, out_dtype):
+    """The kernels' epilogue in plain PyTorch, on an exact accumulator."""
+    y = acc.to(torch.float32) * scale_row
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if residual is not None:
+        if residual.dtype == torch.int8:
+            y = y + residual.to(torch.float32) * float(residual_scale)
+        else:
+            y = y + residual.to(torch.float32)
+    if activation == "relu":
+        y = torch.clamp_min(y, 0.0)
+    elif activation == "relu6":
+        y = torch.clamp(y, 0.0, 6.0)
+    elif activation == "leaky_relu":
+        y = torch.where(y >= 0, y, y * float(act_alpha))
+    elif activation == "sigmoid":
+        y = torch.sigmoid(y)
+    elif activation == "tanh":
+        y = torch.tanh(y)
+    elif activation not in (None, "identity"):
+        raise ValueError(f"epilogue activation {activation!r} not supported")
+    if out_scale is not None:
+        q = torch.round(y * (1.0 / float(out_scale)))
+        return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+    return y.to(out_dtype)
+
+
+def check_epilogue(device, n_out, out_rows, w_scale, bias, residual,
+                   residual_scale, activation, out_scale, out_dtype):
+    """Validate the epilogue operands shared by both kernels."""
+    if activation not in _ACTS:
+        raise ValueError(f"epilogue activation {activation!r} not supported")
+    if w_scale.shape != (n_out,) or w_scale.device != device:
+        raise ValueError(f"w_scale must be [{n_out}] on {device}")
+    if bias is not None and (bias.shape != (n_out,) or bias.device != device):
+        raise ValueError(f"bias must be [{n_out}] on {device}")
+    if residual is not None:
+        if residual.numel() != out_rows * n_out or residual.device != device:
+            raise ValueError(f"residual must hold {out_rows}x{n_out} on {device}")
+        if residual.dtype not in _RES_KINDS:
+            raise TypeError(f"residual dtype {residual.dtype} not supported")
+        if residual.dtype == torch.int8 and residual_scale is None:
+            raise ValueError("an int8 residual needs residual_scale")
+    if out_scale is None and out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype} not supported")
+
+
+def scale_row(w_scale: torch.Tensor, in_scale: float) -> torch.Tensor:
+    return w_scale.to(torch.float32) * float(in_scale)
+
+
+def epilogue_launch_args(w_scale, bias, residual, residual_scale, in_scale,
+                         activation, act_alpha, out_scale, out_dtype, shape,
+                         device):
+    """The output tensor and the C arguments of the epilogue, in the order
+    both entry points take them.  Tensors made here are returned so that
+    the caller holds them across the launch."""
+    if residual is not None and not residual.is_contiguous():
+        raise ValueError("residual must be contiguous")
+    scale = scale_row(w_scale, in_scale).contiguous()
+    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    odt = torch.int8 if out_scale is not None else out_dtype
+    out = torch.empty(shape, dtype=odt, device=device)
+    inv = 0.0 if out_scale is None else 1.0 / float(out_scale)
+    args = [
+        ctypes.c_void_p(scale.data_ptr()),
+        ctypes.c_void_p(None if bias32 is None else bias32.data_ptr()),
+        ctypes.c_void_p(None if residual is None else residual.data_ptr()),
+        0 if residual is None else _RES_KINDS[residual.dtype],
+        float(residual_scale or 0.0),
+        ctypes.c_void_p(out.data_ptr()),
+        _OUT_KINDS[odt],
+    ]
+    tail = [_ACTS[activation], float(act_alpha), inv]
+    return out, args, tail, (scale, bias32)
+
+
+_EPILOGUE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_int]
+_TAIL_ARGTYPES = [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_void_p]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("matmul_int8")
+    fn = lib.ak_matmul_int8
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + _EPILOGUE_ARGTYPES
+                   + [ctypes.c_int] * 3 + _TAIL_ARGTYPES)
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def matmul_int8_plain(a, b, w_scale, bias=None, residual=None, *,
+                      in_scale: float, activation: Optional[str] = None,
+                      act_alpha: float = 0.0,
+                      out_scale: Optional[float] = None,
+                      out_dtype=torch.float32,
+                      residual_scale: Optional[float] = None) -> torch.Tensor:
+    """`matmul_int8` in plain PyTorch, on any device."""
+    res = None if residual is None else residual.reshape(a.shape[0], b.shape[1])
+    return epilogue_plain(_int_matmul(a, b), scale_row(w_scale, in_scale),
+                          bias, res, residual_scale, activation, act_alpha,
+                          out_scale, out_dtype)
+
+
+def matmul_int8(a: torch.Tensor, b: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None, *,
+                in_scale: float, activation: Optional[str] = None,
+                act_alpha: float = 0.0, out_scale: Optional[float] = None,
+                out_dtype=torch.float32,
+                residual_scale: Optional[float] = None) -> torch.Tensor:
+    """Fused int8 GEMM: a [M, K] int8, b [K, N] int8, w_scale [N], bias [N],
+    residual [M, N] (float, or int8 with `residual_scale`).  Returns [M, N]
+    int8 when `out_scale` is given, else `out_dtype`."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"matmul_int8 takes int8 operands, got {a.dtype}, {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul_int8 shapes {tuple(a.shape)} x {tuple(b.shape)}")
+    if b.device != a.device:
+        raise ValueError("matmul_int8 operands on different devices")
+    M, K = a.shape
+    N = b.shape[1]
+    check_epilogue(a.device, N, M, w_scale, bias, residual, residual_scale,
+                   activation, out_scale, out_dtype)
+    kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
+              out_scale=out_scale, out_dtype=out_dtype,
+              residual_scale=residual_scale)
+    if a.device.type == "cpu":
+        return matmul_int8_plain(a, b, w_scale, bias, residual, **kw)
+    if a.device.type != "cuda":
+        raise ValueError(f"matmul_int8 runs on cuda or cpu, not {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul_int8 operands must be contiguous")
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        out, args, tail, _keep = epilogue_launch_args(
+            w_scale, bias, residual, residual_scale, in_scale, activation,
+            act_alpha, out_scale, out_dtype, (M, N), a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.ak_matmul_int8(ctypes.c_void_p(a.data_ptr()),
+                                ctypes.c_void_p(b.data_ptr()), *args, M, N, K,
+                                *tail, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"matmul_int8 kernel launch failed: CUDA error {rc}")
+    matmul_int8.launches += 1
+    return out
+
+
+matmul_int8.launches = 0

@@ -1,0 +1,273 @@
+"""Neural-net ops on NHWC activations and HWIO weights: the port of the
+ResNet path of `anakin_tpu/ops/nn.py`.
+
+Float convolution and dense are plain matrix work that the JAX package
+leaves to XLA, so here they go to `F.conv2d` / `torch.matmul`.  Both run in
+float32 whatever the activation dtype, as the JAX ops accumulate in float32
+(`preferred_element_type`) at "highest" precision: bf16 operands are widened
+(their products are exact in float32) and TF32 is kept off.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .registry import register
+
+__all__ = ["apply_activation", "conv_pads", "pair"]
+
+
+def apply_activation(y: torch.Tensor, act: Optional[str],
+                     alpha: float = 0.0) -> torch.Tensor:
+    """Shared activation epilogue, with the JAX package's names."""
+    if act is None or act == "identity":
+        return y
+    if act == "relu":
+        return torch.clamp_min(y, 0)
+    if act == "relu6":
+        return torch.clamp(y, 0, 6)
+    if act == "clipped_relu":
+        return torch.clamp(y, 0, alpha)
+    if act == "leaky_relu":
+        return torch.where(y >= 0, y, y * alpha)
+    if act == "elu":
+        a = alpha if alpha else 1.0
+        return torch.where(y >= 0, y, a * (torch.exp(y) - 1))
+    if act == "sigmoid":
+        return torch.sigmoid(y)
+    if act == "tanh":
+        return torch.tanh(y)
+    if act == "swish":
+        return y * torch.sigmoid((alpha if alpha else 1.0) * y)
+    if act == "gelu":
+        return F.gelu(y, approximate="tanh")  # jax.nn.gelu's default
+    if act == "soft_sign":
+        return y / (1.0 + torch.abs(y))
+    if act == "softplus":
+        return F.softplus(y)
+    if act == "abs":
+        return torch.abs(y)
+    raise ValueError(f"unknown activation: {act!r}")
+
+
+def _epilogue(node, y, bias, residual):
+    """bias -> residual-add -> activation, all in accumulator dtype."""
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return apply_activation(y, node.attr("activation"), node.attr("act_alpha", 0.0))
+
+
+def pair(v) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+def conv_pads(node, in_hw, k_hw) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((top, bottom), (left, right)) pads of a conv node: "SAME" / "VALID"
+    (XLA's rule), symmetric (ph, pw), or explicit asymmetric pairs."""
+    pad = node.attr("padding", (0, 0))
+    if isinstance(pad, str):
+        if pad.upper() == "VALID":
+            return (0, 0), (0, 0)
+        strides = pair(node.attr("strides", (1, 1)))
+        dil = pair(node.attr("dilation", (1, 1)))
+        out = []
+        for n, k, s, d in zip(in_hw, k_hw, strides, dil):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            out.append((total // 2, total - total // 2))
+        return tuple(out)
+    if (isinstance(pad, (tuple, list)) and len(pad) == 2
+            and isinstance(pad[0], (tuple, list))):
+        return tuple(int(v) for v in pad[0]), tuple(int(v) for v in pad[1])
+    ph, pw = pair(pad)
+    return (ph, ph), (pw, pw)
+
+
+def _split_conv_inputs(node, xs):
+    """inputs = [x, w] + [bias]? + [residual]? according to node flags."""
+    it = iter(xs)
+    x, w = next(it), next(it)
+    bias = next(it) if node.attr("has_bias") else None
+    residual = next(it) if node.attr("has_residual") else None
+    return x, w, bias, residual
+
+
+def _no_tf32():
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _requant(y: torch.Tensor, qs) -> torch.Tensor:
+    """Requant of a float producer that feeds an all-int8 region: the op
+    path's divide, not the kernels' reciprocal multiply."""
+    return torch.clamp(torch.round(y / float(qs)), -127, 127).to(torch.int8)
+
+
+@register("conv2d", "convolution", "conv_act", "conv_relu", "conv_eltwise",
+          "conv_batchnorm_scale_relu", "conv_fusion", "depwise_sep_convolution")
+def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """2D convolution with fused bias/residual/activation epilogue and the
+    optional `quant_out_scale` requant.  x: NHWC, w: HWIO."""
+    x, w, bias, residual = _split_conv_inputs(node, xs)
+    (pt, pb), (pl, pr) = conv_pads(node, x.shape[1:3], w.shape[:2])
+    xt = F.pad(x.to(torch.float32).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    with _no_tf32():
+        y = F.conv2d(xt, w.to(torch.float32).permute(3, 2, 0, 1),
+                     stride=pair(node.attr("strides", (1, 1))),
+                     dilation=pair(node.attr("dilation", (1, 1))),
+                     groups=int(node.attr("groups", 1)))
+    y = _epilogue(node, y.permute(0, 2, 3, 1), bias, residual)
+    qs = node.attr("quant_out_scale")
+    if qs is not None:
+        return [_requant(y, qs).contiguous()]
+    return [y.to(x.dtype).contiguous()]
+
+
+def _pool_out_dim(in_dim: int, k: int, s: int, p: int, ceil_mode: bool) -> int:
+    if ceil_mode:
+        return int(math.ceil((in_dim + 2 * p - k) / s)) + 1
+    return int(math.floor((in_dim + 2 * p - k) / s)) + 1
+
+
+def _windows(x, kh, kw, sh, sw, oh, ow):
+    """The kh*kw strided views of a padded NHWC tensor, one per tap."""
+    return [x[:, dy:dy + sh * (oh - 1) + 1:sh, dx:dx + sw * (ow - 1) + 1:sw, :]
+            for dy in range(kh) for dx in range(kw)]
+
+
+@register("pool2d", "pooling", "conv_relu_pool", "conv_batchnorm_scale_relu_pool")
+def pool2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Max/avg pooling with caffe ceil-mode output sizing.  One code path
+    for every device and dtype: pad with the identity of the reduction,
+    then reduce over the kh*kw strided views (int8 max pooling included)."""
+    x = xs[0]
+    mode = node.attr("mode", "max")
+    if node.attr("global_pooling", False):
+        if mode == "max":
+            return [torch.amax(x, dim=(1, 2), keepdim=True)]
+        return [torch.mean(x.to(torch.float32), dim=(1, 2), keepdim=True)
+                .to(x.dtype)]
+    kh, kw = pair(node.attr("window", (2, 2)))
+    sh, sw = pair(node.attr("strides", (2, 2)))
+    pad = node.attr("padding", (0, 0))
+    _, h, w_, _ = x.shape
+    if (isinstance(pad, (tuple, list)) and len(pad) == 2
+            and isinstance(pad[0], (tuple, list))):
+        (pt, pb), (pl, pr) = ((int(a), int(b)) for a, b in pad)
+    else:
+        ph, pw = pair(pad)
+        ceil_mode = bool(node.attr("ceil_mode", True))
+        oh = _pool_out_dim(h, kh, sh, ph, ceil_mode)
+        ow = _pool_out_dim(w_, kw, sw, pw, ceil_mode)
+        # extra bottom/right padding so the windows give the ceil-mode size
+        pt, pb = ph, ph + max(0, (oh - 1) * sh + kh - h - 2 * ph)
+        pl, pr = pw, pw + max(0, (ow - 1) * sw + kw - w_ - 2 * pw)
+    oh = (h + pt + pb - kh) // sh + 1
+    ow = (w_ + pl + pr - kw) // sw + 1
+    pads = (0, 0, pl, pr, pt, pb)
+    if mode == "max":
+        fill = (float("-inf") if x.is_floating_point()
+                else torch.iinfo(x.dtype).min)
+        views = _windows(F.pad(x, pads, value=fill), kh, kw, sh, sw, oh, ow)
+        y = views[0]
+        for v in views[1:]:
+            y = torch.maximum(y, v)
+        return [y.contiguous()]
+    xf = F.pad(x.to(torch.float32), pads)
+    ysum = sum(_windows(xf, kh, kw, sh, sw, oh, ow))
+    if node.attr("exclusive", True):
+        ones = F.pad(torch.ones((1, h, w_, 1), device=x.device), pads)
+        cnt = sum(_windows(ones, kh, kw, sh, sw, oh, ow))
+        return [(ysum / cnt).to(x.dtype)]
+    return [(ysum / float(kh * kw)).to(x.dtype)]
+
+
+@register("dense", "fc", "dense_dense")
+def dense(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Fully-connected with fused epilogue; x flattened from `axis`,
+    w: (in, out)."""
+    x, w, bias, residual = _split_conv_inputs(node, xs)
+    axis = int(node.attr("axis", 1))
+    lead = tuple(x.shape[:axis])
+    xf = x.reshape(math.prod(lead), -1)
+    y = torch.matmul(xf.to(torch.float32), w.to(torch.float32))
+    y = _epilogue(node, y, bias, residual).reshape(lead + (w.shape[-1],))
+    qs = node.attr("quant_out_scale")
+    if qs is not None:
+        return [_requant(y, qs)]
+    return [y.to(x.dtype)]
+
+
+@register("batch_norm", "batchnorm")
+def batch_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Inference BN: (x - mean) / sqrt(var + eps).  inputs: x, mean, var."""
+    x, mean, var = xs[0], xs[1], xs[2]
+    eps = float(node.attr("eps", 1e-5))
+    inv = torch.rsqrt(var.to(torch.float32) + eps)
+    return [((x.to(torch.float32) - mean) * inv).to(x.dtype)]
+
+
+@register("scale", "batchnorm_scale")
+def scale_op(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Per-channel y = x * gamma (+ beta), channel axis last."""
+    x = xs[0]
+    y = x * xs[1].to(x.dtype)
+    if len(xs) > 2 and node.attr("bias_term", True):
+        y = y + xs[2].to(x.dtype)
+    return [y]
+
+
+@register("activation", "relu", "elu", "prelu_op")
+def activation(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [apply_activation(xs[0], node.attr("activation", "relu"),
+                             node.attr("act_alpha", 0.0))]
+
+
+@register("softmax")
+def softmax(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    x = xs[0]
+    return [torch.softmax(x.to(torch.float32), dim=int(node.attr("axis", -1)))
+            .to(x.dtype)]
+
+
+@register("eltwise", "eltwise_op", "eltwise_relu", "eltwise_prelu", "eltwise_act")
+def eltwise(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """N-ary elementwise combine: sum (with coeffs) / prod / max / min /
+    sub / div, then the activation."""
+    mode = node.attr("mode", "sum")
+    coeffs = node.attr("coeffs")
+    ys = list(xs)
+    if mode in ("sum", "add"):
+        if coeffs:
+            y = sum(c * v for c, v in zip(coeffs, ys))
+        else:
+            y = ys[0]
+            for v in ys[1:]:
+                y = y + v
+    elif mode in ("prod", "mul"):
+        y = ys[0]
+        for v in ys[1:]:
+            y = y * v
+    elif mode == "max":
+        y = ys[0]
+        for v in ys[1:]:
+            y = torch.maximum(y, v)
+    elif mode == "min":
+        y = ys[0]
+        for v in ys[1:]:
+            y = torch.minimum(y, v)
+    elif mode == "sub":
+        y = ys[0] - ys[1]
+    elif mode == "div":
+        y = ys[0] / ys[1]
+    else:
+        raise ValueError(f"unknown eltwise mode {mode!r}")
+    return [apply_activation(y, node.attr("activation"), node.attr("act_alpha", 0.0))]

@@ -1,0 +1,171 @@
+"""int8 ops: the port of the ResNet path of `anakin_tpu/ops/quantized.py`.
+
+Scale conventions (as in the JAX package):
+  int8 value  = clip(round(fp / scale), -127, 127), half-to-even
+  activation scale: per-tensor float; weight scale: per-output-channel
+  dequant: acc_int32 * (in_scale * w_scale[oc])
+
+PyTorch has no int8 convolution on CUDA, so every int8 conv and dense goes
+through the port's two kernels, whatever the node's `impl` attribute says
+(this port has no XLA lowering to choose):
+  "gemm" kind (1x1 s1 p0) and dense_int8  -> matmul_int8
+  "conv3x3" kind (3x3 s1 p1)              -> conv3x3_int8
+  any other dense conv (strided, padded
+  otherwise, other kernel sizes)          -> int8 im2col, then matmul_int8
+On a CPU tensor the kernels run their plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.conv_int8 import conv3x3_int8
+from ..kernels.matmul_int8 import matmul_int8
+from .nn import conv_pads, pair, pool2d
+from .registry import register
+
+__all__ = ["quantize_array", "dequantize_array", "conv_kind"]
+
+
+def quantize_array(x: torch.Tensor, scale) -> torch.Tensor:
+    """fp -> int8 with round-half-to-even and symmetric clip to ±127."""
+    q = torch.round(x.to(torch.float32) / scale)
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def dequantize_array(q: torch.Tensor, scale) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+@register("quantize")
+def quantize(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [quantize_array(xs[0], float(node.attr("scale")))]
+
+
+@register("dequantize")
+def dequantize(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    dtype = getattr(torch, node.attr("dtype", "float32"))
+    return [dequantize_array(xs[0], float(node.attr("scale"))).to(dtype)]
+
+
+def _split_q_inputs(node, xs):
+    """inputs = [x, w, w_scale] + [bias]? + [residual]?"""
+    it = iter(xs)
+    x, w, w_scale = next(it), next(it), next(it)
+    bias = next(it) if node.attr("has_bias") else None
+    residual = next(it) if node.attr("has_residual") else None
+    return x, w, w_scale, bias, residual
+
+
+def conv_kind(node) -> str:
+    """"gemm" (1x1 s1 p0 shape class), "conv3x3" (s1 p1), "dw3x3" (grouped
+    3x3 p1, stride 1/2) or "other": the JAX package's `_conv_kind`."""
+    sh, sw = pair(node.attr("strides", (1, 1)))
+    dh, dw = pair(node.attr("dilation", (1, 1)))
+    pad = node.attr("padding", (0, 0))
+    if isinstance(pad, str) or (isinstance(pad, (tuple, list)) and len(pad)
+                                and isinstance(pad[0], (tuple, list))):
+        return "other"
+    ph, pw = pair(pad)
+    if (dh, dw) != (1, 1):
+        return "other"
+    if int(node.attr("groups", 1)) > 1:
+        if (ph, pw) == (1, 1) and sh == sw and sh in (1, 2):
+            return "dw3x3"
+        return "other"
+    if (sh, sw) != (1, 1):
+        return "other"
+    if (ph, pw) == (0, 0):
+        return "gemm"
+    if (ph, pw) == (1, 1):
+        return "conv3x3"
+    return "other"
+
+
+def _epilogue_kwargs(node, in_scale):
+    out_scale = node.attr("out_scale")
+    return dict(
+        in_scale=in_scale,
+        activation=node.attr("activation"),
+        act_alpha=float(node.attr("act_alpha", 0.0)),
+        out_scale=None if out_scale is None else float(out_scale),
+        out_dtype=getattr(torch, node.attr("out_dtype", "float32")),
+        residual_scale=node.attr("residual_scale"),
+    )
+
+
+def _im2col(x, kh, kw, strides, dilation, pads):
+    """int8 [N, H, W, C] -> [N, OH, OW, kh*kw*C] patches in (dy, dx, c)
+    order, which matches an HWIO weight reshaped to [kh*kw*C, O]."""
+    (pt, pb), (pl, pr) = pads
+    sh, sw = strides
+    dh, dw = dilation
+    if (pt, pb, pl, pr) != (0, 0, 0, 0):
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    _, h, w_, _ = x.shape
+    oh = (h - dh * (kh - 1) - 1) // sh + 1
+    ow = (w_ - dw * (kw - 1) - 1) // sw + 1
+    cols = [x[:, dy * dh:dy * dh + sh * (oh - 1) + 1:sh,
+              dx * dw:dx * dw + sw * (ow - 1) + 1:sw, :]
+            for dy in range(kh) for dx in range(kw)]
+    return (cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)).contiguous()
+
+
+@register("conv2d_int8")
+def conv2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """int8 conv with the fused dequant/bias/residual/act/requant epilogue.
+    x: NHWC int8 (or float, quantized here with `in_scale`), w: HWIO int8,
+    w_scale: [O] per-output-channel scale.  A residual stays int8 when it
+    is and is dequantized inside the kernel with `residual_scale`."""
+    x, w, w_scale, bias, residual = _split_q_inputs(node, xs)
+    in_scale = float(node.attr("in_scale"))
+    if x.dtype != torch.int8:
+        x = quantize_array(x, in_scale)
+    kind = conv_kind(node)
+    if int(node.attr("groups", 1)) != 1:
+        raise NotImplementedError("grouped int8 conv is not ported yet")
+    kw = _epilogue_kwargs(node, in_scale)
+    kh, kw_ = int(w.shape[0]), int(w.shape[1])
+    if kind == "conv3x3" and (kh, kw_) == (3, 3):
+        return [conv3x3_int8(
+            x.contiguous(), w, w_scale, bias,
+            None if residual is None else residual.contiguous(), **kw)]
+    n, o = x.shape[0], w.shape[3]
+    if kind == "gemm" and (kh, kw_) == (1, 1):
+        cols = x
+    else:
+        cols = _im2col(x, kh, kw_, pair(node.attr("strides", (1, 1))),
+                       pair(node.attr("dilation", (1, 1))),
+                       conv_pads(node, x.shape[1:3], (kh, kw_)))
+    oh, ow = cols.shape[1], cols.shape[2]
+    y = matmul_int8(cols.reshape(n * oh * ow, -1), w.reshape(-1, o), w_scale,
+                    bias, None if residual is None else residual.reshape(-1, o),
+                    **kw)
+    return [y.reshape(n, oh, ow, o)]
+
+
+@register("dense_int8")
+def dense_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """int8 fully-connected on `matmul_int8`; a float input is quantized
+    here with `in_scale`."""
+    x, w, w_scale, bias, residual = _split_q_inputs(node, xs)
+    in_scale = float(node.attr("in_scale"))
+    if x.dtype != torch.int8:
+        x = quantize_array(x, in_scale)
+    axis = int(node.attr("axis", 1))
+    lead = tuple(x.shape[:axis])
+    n_out = w.shape[-1]
+    y = matmul_int8(x.reshape(math.prod(lead), -1), w, w_scale, bias,
+                    None if residual is None else residual.reshape(-1, n_out),
+                    **_epilogue_kwargs(node, in_scale))
+    return [y.reshape(lead + (n_out,))]
+
+
+@register("pool2d_int8")
+def pool2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Max pooling directly on int8 edges (scale-preserving)."""
+    return pool2d(node, xs)
