@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build", "build_all", "load"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "anakin_tpu_torch")
-SOURCES = ("matmul_int8", "conv3x3_int8")
+SOURCES = ("matmul_int8", "conv3x3_int8", "flash_attention", "matmul_w4")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,119 @@
+"""Weight-only int4 matmul with group-wise scales: the port of
+`anakin_tpu/kernels/matmul_w4.py::matmul_w4`, variant v1.
+
+    W[k, n] = cast_to_x_dtype(float(int4[k, n]) * scales[k // G, n])
+    out     = x @ W as [M, N] float32
+
+x [M, K] bf16 or float32, packed [K/2, N] int8 and scales [K/G, N] float32
+in the layout of `quant.quantize._w4_group_quantize`: in each group of G
+rows, packed row r holds row r in its low nibble and row r + G/2 in its
+high nibble.  The epilogue (bias, residual, activation) stays with the
+caller, as in the JAX package.
+
+On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
+`csrc/matmul_w4.cu`; on a CPU tensor it runs `matmul_w4_plain`.  The two
+agree up to the order of the float32 sums.  Variant "v2" (x pre-split into
+low and high halves) is not ported yet and raises on every device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["matmul_w4", "matmul_w4_plain", "unpack_w4"]
+
+
+def unpack_w4(packed: torch.Tensor, scales: torch.Tensor, group: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The dequantized weight [K, N] in `dtype`: nibbles sign-extended,
+    times the group's float32 scale, then rounded to `dtype`."""
+    K2, N = packed.shape
+    K = 2 * K2
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4
+    ng = K // group
+    w = torch.cat([lo.reshape(ng, group // 2, N), hi.reshape(ng, group // 2, N)],
+                  dim=1).to(torch.float32)
+    w = w * scales.to(torch.float32)[:, None, :]
+    return w.reshape(K, N).to(dtype)
+
+
+def matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, *, group: int) -> torch.Tensor:
+    """`matmul_w4` in plain PyTorch, on any device: dequantize, then one
+    float32 product (bf16 operands are exact in float32)."""
+    w = unpack_w4(packed, scales, group, x.dtype)
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def _check(x, packed, scales, group, variant):
+    if variant != "v1":
+        raise NotImplementedError(f"matmul_w4 variant {variant!r} is not ported; "
+                                  "only 'v1' is")
+    if x.dim() != 2 or packed.dim() != 2 or x.shape[1] != 2 * packed.shape[0]:
+        raise ValueError(f"matmul_w4 shapes x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}")
+    K, N = x.shape[1], packed.shape[1]
+    if group <= 0 or group % 2 or K % group or tuple(scales.shape) != (K // group, N):
+        raise ValueError(f"matmul_w4: K {K}, group {group}, scales "
+                         f"{tuple(scales.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or packed.dtype != torch.int8:
+        raise TypeError(f"matmul_w4 takes float32/bf16 x and int8 packed "
+                        f"weights, got {x.dtype}, {packed.dtype}")
+    if packed.device != x.device or scales.device != x.device:
+        raise ValueError("matmul_w4 operands on different devices")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("matmul_w4")
+    lib.ak_matmul_w4_splits.argtypes = [ctypes.c_int] * 5
+    lib.ak_matmul_w4_splits.restype = ctypes.c_int
+    lib.ak_matmul_w4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    lib.ak_matmul_w4.restype = ctypes.c_int
+    return lib
+
+
+def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
+              group: int, variant: str = "v1") -> torch.Tensor:
+    """x [M, K] @ dequant(packed [K/2, N], scales [K/G, N]) -> [M, N] float32."""
+    _check(x, packed, scales, group, variant)
+    if x.device.type == "cpu":
+        return matmul_w4_plain(x, packed, scales, group=group)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_w4 runs on cuda or cpu, not {x.device}")
+    if (group // 2) % 32:
+        raise ValueError(f"the CUDA matmul_w4 takes groups that are multiples "
+                         f"of 64, got {group}")
+    M, K = x.shape
+    N = packed.shape[1]
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x in 32-bit pairs
+        x = x.clone()
+    packed = packed.contiguous()
+    scales = scales.to(torch.float32).contiguous()
+    lib = _lib()
+    bf16 = int(x.dtype == torch.bfloat16)
+    splits = lib.ak_matmul_w4_splits(M, N, K, group, bf16)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ak_matmul_w4(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
+            ctypes.c_void_p(scales.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()), bf16, M, N,
+            K, group, splits, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"matmul_w4 kernel launch failed: CUDA error {rc}")
+    matmul_w4.launches += 1
+    return out
+
+
+matmul_w4.launches = 0

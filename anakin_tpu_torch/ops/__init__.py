@@ -4,3 +4,5 @@ from .registry import ALIASES, OPS, get_op, register, resolve_op_name  # noqa: F
 from . import nn  # noqa: F401
 from . import tensor  # noqa: F401
 from . import quantized  # noqa: F401
+from . import sequence  # noqa: F401
+from . import attention  # noqa: F401

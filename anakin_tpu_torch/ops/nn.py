@@ -1,5 +1,5 @@
 """Neural-net ops on NHWC activations and HWIO weights: the port of the
-ResNet path of `anakin_tpu/ops/nn.py`.
+ResNet and LLM paths of `anakin_tpu/ops/nn.py`.
 
 Float convolution and dense are plain matrix work that the JAX package
 leaves to XLA, so here they go to `F.conv2d` / `torch.matmul`.  Both run in
@@ -206,6 +206,18 @@ def dense(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     return [y.to(x.dtype)]
 
 
+@register("embedding")
+def embedding(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Token embedding lookup; ids equal to `padding_idx` give zero rows."""
+    ids, table = xs[0].to(torch.int64), xs[1]
+    y = table[torch.clamp_min(ids, 0)]
+    pad_idx = node.attr("padding_idx", -1)
+    if pad_idx is not None and pad_idx >= 0:
+        y = torch.where((ids == pad_idx)[..., None], torch.zeros((), dtype=y.dtype,
+                                                                 device=y.device), y)
+    return [y]
+
+
 @register("batch_norm", "batchnorm")
 def batch_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Inference BN: (x - mean) / sqrt(var + eps).  inputs: x, mean, var."""
@@ -213,6 +225,39 @@ def batch_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     eps = float(node.attr("eps", 1e-5))
     inv = torch.rsqrt(var.to(torch.float32) + eps)
     return [((x.to(torch.float32) - mean) * inv).to(x.dtype)]
+
+
+def _broadcast_trailing(p: torch.Tensor, ndim: int) -> torch.Tensor:
+    return p.to(torch.float32).reshape((1,) * (ndim - p.dim()) + tuple(p.shape))
+
+
+@register("layer_norm")
+def layer_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """LayerNorm over the axes from `begin_norm_axis` on, in float32.
+    inputs: x, gamma, beta."""
+    x, gamma, beta = xs[0], xs[1], xs[2]
+    axis_from = int(node.attr("begin_norm_axis", -1))
+    dims = tuple(range(axis_from if axis_from >= 0 else x.dim() + axis_from,
+                       x.dim()))
+    eps = float(node.attr("eps", 1e-5))
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=dims, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=dims, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * _broadcast_trailing(gamma, x.dim()) + _broadcast_trailing(beta, x.dim())
+    return [y.to(x.dtype)]
+
+
+@register("rms_norm")
+def rms_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """RMSNorm over the last axis, x * g / rms(x), in float32 (the llama
+    recipe's norm).  inputs: x, gamma."""
+    x, gamma = xs[0], xs[1]
+    eps = float(node.attr("eps", 1e-6))
+    xf = x.to(torch.float32)
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * _broadcast_trailing(gamma, x.dim())
+    return [y.to(x.dtype)]
 
 
 @register("scale", "batchnorm_scale")

@@ -1,4 +1,5 @@
-"""int8 ops: the port of the ResNet path of `anakin_tpu/ops/quantized.py`.
+"""int8 and weight-only ops: the port of the ResNet and LLM paths of
+`anakin_tpu/ops/quantized.py`.
 
 Scale conventions (as in the JAX package):
   int8 value  = clip(round(fp / scale), -127, 127), half-to-even
@@ -13,6 +14,14 @@ through the port's two kernels, whatever the node's `impl` attribute says
   any other dense conv (strided, padded
   otherwise, other kernel sizes)          -> int8 im2col, then matmul_int8
 On a CPU tensor the kernels run their plain versions.
+
+The weight-only ops keep activations in float: `dense_w8` (int8 weights,
+per-output-channel scale after the product) is a plain float32 matmul, as
+the JAX package leaves it to XLA; `dense_w4` (nibble-packed int4 weights,
+group-wise scales) always goes through `matmul_w4`, whatever `impl` says.
+Both JAX routes of `dense_w4` (Pallas and XLA) compute the same function:
+the float32 scale times the int4 value, rounded to the activation dtype,
+then a float32-accumulated product.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ import torch.nn.functional as F
 
 from ..kernels.conv_int8 import conv3x3_int8
 from ..kernels.matmul_int8 import matmul_int8
-from .nn import conv_pads, pair, pool2d
+from ..kernels.matmul_w4 import matmul_w4
+from .nn import _epilogue, conv_pads, pair, pool2d
 from .registry import register
 
 __all__ = ["quantize_array", "dequantize_array", "conv_kind"]
@@ -163,6 +173,37 @@ def dense_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
                     None if residual is None else residual.reshape(-1, n_out),
                     **_epilogue_kwargs(node, in_scale))
     return [y.reshape(lead + (n_out,))]
+
+
+def _split_w_inputs(node, xs):
+    """inputs = [x, w_q, w_scale] + [bias]? + [residual]?, x flattened
+    from `axis` to [rows, K]."""
+    x, w_q, w_scale, bias, residual = _split_q_inputs(node, xs)
+    lead = tuple(x.shape[:int(node.attr("axis", 1))])
+    return x, x.reshape(math.prod(lead), -1), lead, w_q, w_scale, bias, residual
+
+
+@register("dense_w8")
+def dense_w8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Weight-only int8 fully-connected: x @ float(w_q) in float32, times
+    the per-output-channel scale, then the epilogue."""
+    x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
+    y = torch.matmul(xf.to(torch.float32), w_q.to(torch.float32))
+    y = _epilogue(node, y * w_scale.to(torch.float32), bias, residual)
+    return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
+
+
+@register("dense_w4")
+def dense_w4(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Weight-only int4 fully-connected on `matmul_w4` (attr `w4_group`;
+    attr `variant` "v1", the default, is the only one ported), then the
+    epilogue in float32."""
+    x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
+    y = matmul_w4(xf, w_q, w_scale.to(torch.float32),
+                  group=int(node.attr("w4_group")),
+                  variant=str(node.attr("variant", "v1")))
+    y = _epilogue(node, y, bias, residual)
+    return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
 
 
 @register("pool2d_int8")

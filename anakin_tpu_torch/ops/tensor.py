@@ -1,4 +1,4 @@
-"""Tensor-layout ops of the ResNet path (`anakin_tpu/ops/tensor.py`)."""
+"""Tensor-layout ops of the ResNet and LLM paths (`anakin_tpu/ops/tensor.py`)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,14 @@ from typing import List
 import torch
 
 from .registry import register
+
+
+@register("reshape")
+def reshape(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Reshape to attr `shape`, where a 0 keeps that dim of the input."""
+    x = xs[0]
+    out = [x.shape[i] if s == 0 else s for i, s in enumerate(node.attr("shape"))]
+    return [x.reshape(out)]
 
 
 @register("flatten")

@@ -19,13 +19,15 @@ Parity with the reference's INT8 deployment flow
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional, Set
 
 import numpy as np
 
 from ..graph.ir import Graph, Node, topological_order
 
-__all__ = ["quantize_graph", "per_channel_weight_scale"]
+__all__ = ["quantize_graph", "weight_only_quantize",
+           "per_channel_weight_scale"]
 
 # node ops that can COMPUTE in int8 (consume an int8 x-input natively)
 _INT8_COMPUTE = {"conv2d", "dense"}
@@ -198,5 +200,91 @@ def quantize_graph(
 
     g.scales.update(eff_scale)
     g.applied_passes.append("quantize_graph")
+    g.validate()
+    return g
+
+
+def _w4_group_quantize(w: np.ndarray, group: int):
+    """Symmetric int4 with one scale per `group` input rows per output
+    column (scale = amax / 7, at least 1e-12), two nibbles per int8 byte in
+    per-group split-half layout: within each group of G rows, packed row r
+    holds row r (low nibble) and row r + G/2 (high nibble), so any block of
+    whole groups unpacks on its own.
+
+    Returns (packed int8 [K/2, N], scales float32 [K/G, N], G); G falls
+    back to K when `group` does not divide K or is odd."""
+    K, N = w.shape
+    if K % 2:
+        raise ValueError(f"w4 packing needs an even reduction dim, got {K}")
+    G = group if group and K % group == 0 and group % 2 == 0 else K
+    wg = w.reshape(K // G, G, N).astype(np.float32)
+    scale = np.maximum(np.abs(wg).max(axis=1) / 7.0, 1e-12).astype(np.float32)
+    q = np.clip(np.round(wg / scale[:, None, :]), -8, 7).astype(np.int8)
+    lo, hi = q[:, :G // 2], q[:, G // 2:]            # [K/G, G/2, N] each
+    packed = ((lo & 0xF) | (hi << 4)).reshape(K // 2, N).astype(np.int8)
+    return packed, scale, G
+
+
+def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
+                         bits: int = 8, group: int = 128) -> Graph:
+    """Calibration-free weight-only quantization for decode graphs, whose
+    steps are bound by weight bytes; activations stay float.
+
+    bits=8: dense -> dense_w8, conv2d -> conv2d_w8, per-output-channel
+    scales applied after the product.
+    bits=4: dense -> dense_w4 with group-wise scales (`group` input rows
+    per scale), nibble-packed by `_w4_group_quantize`; convs keep 8 bits.
+    A dense whose reduction dim is odd or not a multiple of the group
+    (clamped to K) falls back to w8 for that layer, with a warning.
+
+    Only weights of at least `min_elems` elements are rewritten, and nodes
+    pinned to "fp32" in `graph.precisions` stay float.  Use it instead of
+    `quantize_graph`, not with it.  (The port runs `dense_w8` and
+    `dense_w4`; `conv2d_w8` waits for a conv slice.)
+    """
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    g = graph.clone()
+    for node in g.nodes.values():
+        if node.op not in ("dense", "conv2d"):
+            continue
+        if g.precisions.get(node.name) == "fp32":
+            continue
+        w = g.params.get(node.inputs[1])
+        if w is None or w.size < min_elems:
+            continue
+        w_edge = node.inputs[1]
+        rest = node.inputs[2:]
+        if bits == 4 and node.op == "dense":
+            K = int(w.shape[0])
+            eff_group = min(group, K) if group else group
+            if K % 2 or (eff_group and K % eff_group):
+                logging.getLogger("anakin_tpu_torch").warning(
+                    "w4: dense %s reduction dim %d not divisible by "
+                    "group=%d — falling back to w8 for this layer",
+                    node.name, K, group)
+            else:
+                q, scale, G = _w4_group_quantize(np.asarray(w), eff_group)
+                g.params[w_edge + "__w4"] = q
+                g.params[w_edge + "__w4scale"] = scale
+                node.inputs = [node.inputs[0], w_edge + "__w4",
+                               w_edge + "__w4scale"] + rest
+                node.attrs["w4_group"] = G
+                node.op = "dense_w4"
+                continue
+        axis = 3 if node.op == "conv2d" else 1
+        w_scale = per_channel_weight_scale(w, axis)
+        g.params[w_edge + "__w8"] = _quantize_weight(w, w_scale, axis)
+        g.params[w_edge + "__w8scale"] = w_scale
+        node.inputs = [node.inputs[0], w_edge + "__w8",
+                       w_edge + "__w8scale"] + rest
+        node.op = "dense_w8" if node.op == "dense" else "conv2d_w8"
+    used = set()
+    for node in g.nodes.values():
+        used.update(node.inputs)
+    for p in list(g.params):
+        if p not in used:
+            del g.params[p]
+    g.applied_passes.append("weight_only_quantize")
     g.validate()
     return g

@@ -2,30 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ResNet-50 int8 inference at 224 px and batch
-128 (the JAX package's `bench.py` configuration, with its checked-in scale
-table and random weights from seed 0), in four phases:
+Drives the port's two main paths through the entry points a user calls:
+ResNet-50 int8 inference at 224 px and batch 128 (the JAX package's
+`bench.py` configuration, with its checked-in scale table and random weights
+from seed 0), and 1B-class LLM serving (vocab 32000, E 2048, 16 layers, 16
+heads over 8 kv heads, max_seq 2048: the JAX package's `llm1b_*`
+configuration, random weights from seed 0, built once for both LLM paths).
+Phases:
 
-  1. build    compile every kernel of the path from `anakin_tpu_torch/csrc`
-              (one nvcc per source, all at once) and print what ptxas says;
-  2. path     one forward through `Net.prediction` with every kernel's launch
-              count set to 0 just before and read just after: matmul_int8
-              must launch 40 times and conv3x3_int8 13 times; the softmax
-              must be finite rows summing to 1; then ms/step and img/s from
-              CUDA events, and one profiled step (device time by kernel);
-  3. kernels  each kernel's wrapper against its plain PyTorch version on the
-              card, on random int8 data at every distinct shape and epilogue
-              the path gave it: int8 outputs must be equal, float outputs
-              within rtol 1e-6 (the same float32 operations in the same
-              order; the plain version's exact float64 accumulator).  Each is
-              timed with CUDA events beside its plain version, its bound and,
-              for the GEMM, `torch._int_mm` on the same operands (PyTorch
-              has no int8 convolution on CUDA, so the 3x3 has none);
-  4. cpu/gpu  the same network at batch 2 on the card and on the CPU (the
-              plain versions): equal top-1 and softmax within rtol 5e-3 and
-              atol 1e-4.  The int8 edges and logits are reported, not held
-              to a bound: the stem's float conv sums in another order on each
-              device, and a rounding it moves propagates.
+  1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
+              per source, all at once) and print what ptxas says;
+  2. resnet   one forward through `Net.prediction` with every kernel's
+              launch count set to 0 just before and read just after:
+              matmul_int8 must launch 40 times and conv3x3_int8 13 times;
+              the softmax must be finite rows summing to 1; then ms/step
+              and img/s from CUDA events, and one profiled step;
+  3. kernels  each ResNet kernel's wrapper against its plain PyTorch version
+              on the card, on random int8 data at every distinct shape and
+              epilogue of the path: int8 outputs equal, float outputs within
+              rtol 1e-6; timed beside the plain version, the bound and, for
+              the GEMM, `torch._int_mm` (PyTorch has no int8 convolution on
+              CUDA, so the 3x3 has none);
+  4. cpu/gpu  ResNet at batch 2 on the card and on the CPU: equal top-1 and
+              softmax within rtol 5e-3 and atol 1e-4;
+  5. llm A    `GenerationSession(batch 8, bf16, int8 KV cache)` generates 32
+              greedy tokens after a 512-token prompt: the prefill (bucket
+              512, so flash) must launch flash_attention 16 times; tokens in
+              range, logits finite; prefill ms, decode ms per token step and
+              tokens/s from CUDA events; one profiled decode step;
+  6. llm B    the w4 decode step (`weight_only_quantize(bits=4)` of the
+              int8-KV aligned decode graph) through `Net(precision="bf16")`
+              for 32 chained greedy steps: 33 matmul_w4 launches a step;
+              ms per token step, tokens/s, one profiled step;
+  7. kernels  flash_attention and matmul_w4 against their plain versions on
+              the card at every distinct shape of paths A and B, plus a
+              ragged S = 300 with segment ids, S = 2048, ragged and
+              prefill-sized M, and float32 inputs; tolerances as each
+              kernel's source states them; each timed beside its plain
+              version, its bound and a library call
+              (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`);
+  8. cpu/gpu  the LLM at full width and 2 layers, batch 2, 512-token prompt,
+              on the card (flash prefill) and on the CPU (dense prefill):
+              last-position logits and one teacher-forced w4 decode step
+              within 1.5% of the largest logit, greedy tokens equal wherever
+              the CPU's top-2 gap exceeds that.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -33,6 +53,7 @@ the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -45,6 +66,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate, op/s
+PEAK_BF16_OPS = 989e12      # H100 SXM dense bf16 tensor-core rate, flop/s
+PEAK_F32_OPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
 BATCH, IMAGE = 128, 224
 SCALES = os.path.join(ROOT, "artifacts", "resnet50_seed0_scales.txt")
@@ -53,6 +76,10 @@ KERNEL_META = {
                     "anakin_tpu/kernels/matmul_int8.py:95"),
     "conv3x3_int8": ("anakin_tpu_torch/csrc/conv3x3_int8.cu",
                      "anakin_tpu/kernels/conv_int8.py:118"),
+    "flash_attention": ("anakin_tpu_torch/csrc/flash_attention.cu",
+                        "anakin_tpu/kernels/flash_attention.py:101"),
+    "matmul_w4": ("anakin_tpu_torch/csrc/matmul_w4.cu",
+                  "anakin_tpu/kernels/matmul_w4.py:129"),
 }
 
 
@@ -85,6 +112,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2, windows: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def graph_ms(fn, iters: int = 20, windows: int = 5) -> float:
+    """Device milliseconds of one `fn()`: `iters` calls captured in one CUDA
+    graph, the replay timed with CUDA events (median of `windows`).  A call
+    of a few tens of microseconds spends longer than that in Python, so
+    events around an eager loop of them would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
+
+
+def rotating(fn, args_list):
+    """`fn` over a cycle of argument tuples: each call finds its operands
+    out of the 50 MB L2, as a decode step finds its weights."""
+    it = itertools.cycle(args_list)
+    return lambda: fn(*next(it))
 
 
 def build_graph(batch: int):
@@ -195,55 +259,89 @@ def check_kernel(kernel, cfg, gen):
                 bound_by=by)
 
 
-def summarize(results, counts):
+def summarize(results, counts, units):
     """One entry per kernel for the `kernels` line: times and bounds summed
-    over the calls one forward makes."""
+    over the calls of one main-path run (`units[name]` says which run; the
+    launches are that run's count).  Rows checked at shapes the path does
+    not give (calls_per_run 0) count for max_abs_err only."""
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         rs = [r for r in results if r["kernel"] == name]
+        path = [r for r in rs if r["calls_per_run"]]
 
-        def per_forward(key):
-            return sum(r[key] * r["calls_per_forward"] for r in rs)
+        def per_run(key):
+            return sum(r[key] * r["calls_per_run"] for r in path)
 
-        by_ops = sum(r["bound_ms"] * r["calls_per_forward"] for r in rs
+        by_ops = sum(r["bound_ms"] * r["calls_per_run"] for r in path
                      if r["bound_by"] == "operations")
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name],
+            launches=counts[name], unit=units[name],
             max_abs_err=max(r["max_abs_err"] for r in rs),
-            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
-            bound_ms=per_forward("bound_ms"),
-            bound_by=("operations" if 2 * by_ops >= per_forward("bound_ms")
+            ms=per_run("ms"), plain_ms=per_run("plain_ms"),
+            bound_ms=per_run("bound_ms"),
+            bound_by=("operations" if 2 * by_ops >= per_run("bound_ms")
                       else "bytes"),
-            library_ms=(None if any(r["library_ms"] is None for r in rs)
-                        else per_forward("library_ms"))))
+            library_ms=(None if any(r["library_ms"] is None for r in path)
+                        else per_run("library_ms"))))
     return kernels
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        log("chip_smoke: no CUDA device; this script runs only on a GPU")
-        return 1
+def kernel_wrappers():
+    from anakin_tpu_torch.kernels import (conv3x3_int8, flash_attention,
+                                          matmul_int8, matmul_w4)
+
+    return {"matmul_int8": matmul_int8, "conv3x3_int8": conv3x3_int8,
+            "flash_attention": flash_attention, "matmul_w4": matmul_w4}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def profile_step(fn, step_ms, tag):
+    """Device time by kernel in one `fn()` under torch.profiler, and the
+    share of the unprofiled step the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():  # kernels only: host ops are not device time
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_name[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
+    busy_ms = sum(t for t, _ in by_name.values())
+    launches = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    if busy_ms > 0:
+        log(f"[{tag}] profiled step: wall {wall_ms:.2f} ms under the profiler, "
+            f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
+            f"it, {100 * busy_ms / step_ms:.1f}% of the unprofiled step) in "
+            f"{launches} kernel launches")
+        for k, (t, c) in top:
+            log(f"[{tag}]   {t:9.3f} ms  x{c:<4d} {k[:90]}")
+    else:
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                busy_share_of_step=busy_ms / step_ms, kernel_launches=launches,
+                top=[(k, t, c) for k, (t, c) in top])
+
+
+# ------------------------------------------------------------------ ResNet
+
+def resnet_phases(report, card):
+    """Phases 2-4.  Returns the kernel check rows and the path's counts."""
     import anakin_tpu_torch as ak
-    from anakin_tpu_torch.kernels import _build
-    from anakin_tpu_torch.kernels.conv_int8 import conv3x3_int8
-    from anakin_tpu_torch.kernels.matmul_int8 import matmul_int8
     from anakin_tpu_torch.runtime.net import build_forward
-
-    card = gpu_name_and_power_limit()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} | {card}")
-    report = {"card": card}
-
-    # ---------------------------------------------------------- 1. build
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    report["build_s"] = time.perf_counter() - t0
-    for name, (path, secs, out) in built.items():
-        log(f"[build] {name}: {secs:.1f} s -> {os.path.relpath(path, ROOT)}")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
 
     # ----------------------------------------------------------- 2. path
     t0 = time.perf_counter()
@@ -257,14 +355,13 @@ def main() -> int:
     log(f"[path] graph, weights and first forward: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    matmul_int8.launches = 0
-    conv3x3_int8.launches = 0
+    reset_counts()
     y = net.prediction({"input": x})[out_edge]
     torch.cuda.synchronize()
-    counts = {"matmul_int8": matmul_int8.launches,
-              "conv3x3_int8": conv3x3_int8.launches}
+    counts = read_counts()
     log(f"[path] launches in one forward: {counts}")
-    if counts != {"matmul_int8": 40, "conv3x3_int8": 13}:
+    if counts != {"matmul_int8": 40, "conv3x3_int8": 13, "flash_attention": 0,
+                  "matmul_w4": 0}:
         raise AssertionError(f"expected 40 + 13 kernel launches, got {counts}")
     yf = y.float()
     if tuple(y.shape) != (BATCH, 1000) or not torch.isfinite(yf).all():
@@ -278,31 +375,8 @@ def main() -> int:
                           img_per_s=BATCH / step_ms * 1e3)
     log(f"[path] ResNet-50 int8 b{BATCH} {IMAGE}px: {step_ms:.3f} ms/step, "
         f"{BATCH / step_ms * 1e3:.1f} img/s | {card}")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.prediction({"input": x})
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for ev in prof.key_averages():  # kernels only: host ops are not device time
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_name[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
-    busy_ms = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    report["profile"] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                             top=[(k, t, c) for k, (t, c) in top])
-    if busy_ms > 0:
-        log(f"[profile] one step: wall {wall_ms:.2f} ms under the profiler, "
-            f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% of "
-            f"it, {100 * busy_ms / step_ms:.1f}% of the unprofiled step)")
-        for k, (t, c) in top:
-            log(f"[profile]   {t:9.3f} ms  x{c:<4d} {k[:90]}")
-    else:
-        log("[profile] the profiler recorded no device time: not measured")
+    report["profile"] = profile_step(lambda: net.prediction({"input": x}),
+                                     step_ms, "profile")
 
     # -------------------------------------------------------- 3. kernels
     edges = [e for n in g128.nodes.values() for e in n.outputs]
@@ -319,7 +393,7 @@ def main() -> int:
     results = []
     for (kernel, cfg_items), n_calls in distinct.items():
         r = check_kernel(kernel, dict(cfg_items), gen)
-        r["calls_per_forward"] = n_calls
+        r["calls_per_run"] = n_calls
         results.append(r)
         shape = ("x".join(str(r[k]) for k in ("N", "H", "W", "C", "O"))
                  if kernel == "conv3x3_int8"
@@ -335,8 +409,6 @@ def main() -> int:
     report["kernel_configs"] = results
     log("[kernel] conv3x3_int8 has no library_ms: PyTorch has no int8 "
         "convolution on CUDA")
-
-    kernels = summarize(results, counts)
 
     # -------------------------------------------------------- 4. cpu/gpu
     g2 = build_graph(2)
@@ -367,7 +439,439 @@ def main() -> int:
     report["cpu_gpu"] = dict(int8_max_lsb=lsb, int8_diff_elements=n_diff,
                              logits_rel_err=logit_err,
                              softmax_max_abs=soft_err)
+    return results, counts
 
+
+# --------------------------------------------------------------------- LLM
+
+LLM_CFG = dict(vocab=32000, embed=2048, heads=16, kv_heads=8, layers=16,
+               max_seq=2048)
+LLM_BATCH, PROMPT, NEW = 8, 512, 32
+# card vs CPU logits, as a fraction of the largest |logit|: about three
+# times the 0.4-0.5% measured on an H100 (PERF.md section 6)
+LLM_TOL = 0.015
+
+
+def llm_path_a(report, cfg, params, card):
+    """Phase 5: GenerationSession, 512-token prompt, 32 greedy tokens."""
+    from anakin_tpu_torch.runtime.generate import GenerationSession
+
+    t0 = time.perf_counter()
+    sess = GenerationSession(cfg, batch=LLM_BATCH, params=params,
+                             precision="bf16", kv_cache_dtype="int8",
+                             device="cuda")
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab, (LLM_BATCH, PROMPT)).astype(np.int32)
+    sess.generate(prompt, NEW)                    # warm-up
+    torch.cuda.synchronize()
+    log(f"[llm A] session, weights and first generate: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens = sess.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[llm A] launches in one generate (1 prefill + {NEW} steps): {counts}")
+    if counts != {"matmul_int8": 0, "conv3x3_int8": 0,
+                  "flash_attention": cfg.layers, "matmul_w4": 0}:
+        raise AssertionError(f"expected {cfg.layers} flash_attention launches "
+                             f"in the prefill, got {counts}")
+    new = tokens[:, PROMPT:]
+    if tokens.shape != (LLM_BATCH, PROMPT + NEW) or new.min() < 0 \
+            or new.max() >= cfg.vocab:
+        raise AssertionError(f"bad tokens {tokens.shape} {new.min()} {new.max()}")
+
+    prompt_t = torch.from_numpy(prompt).cuda()
+    logits, caches = sess._prefill(prompt_t)
+    tok = torch.argmax(logits[:, 0, :], -1).to(torch.int32)
+    step_logits, _ = sess._step(tok, PROMPT, caches)
+    for name, lg in (("prefill", logits), ("decode", step_logits)):
+        if tuple(lg.shape) != (LLM_BATCH, 1, cfg.vocab) or \
+                not torch.isfinite(lg.float()).all():
+            raise AssertionError(f"bad {name} logits {tuple(lg.shape)}")
+    if not torch.equal(tok.cpu(), torch.from_numpy(tokens[:, PROMPT])):
+        raise AssertionError("first token differs between two generate runs")
+    prefill_ms = cuda_ms(lambda: sess._prefill(prompt_t), iters=3, warmup=1)
+    step_ms = cuda_ms(lambda: sess._step(tok, PROMPT, caches), iters=10)
+    res = dict(batch=LLM_BATCH, prompt=PROMPT, new_tokens=NEW,
+               precision="bf16", kv_cache="int8", launches=counts,
+               prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
+               decode_tokens_per_s=LLM_BATCH / step_ms * 1e3,
+               generate_wall_s=gen_s)
+    log(f"[llm A] prefill {PROMPT} tokens x{LLM_BATCH}: {prefill_ms:.3f} ms; "
+        f"decode {step_ms:.3f} ms/token step, "
+        f"{LLM_BATCH / step_ms * 1e3:.1f} tokens/s; generate wall "
+        f"{gen_s:.3f} s | {card}")
+    res["profile_decode"] = profile_step(
+        lambda: sess._step(tok, PROMPT, caches), step_ms, "llm A")
+    res["profile_prefill"] = profile_step(
+        lambda: sess._prefill(prompt_t), prefill_ms, "llm A prefill")
+    report["llm_a"] = res
+    return counts
+
+
+def llm_path_b(report, cfg, params, card):
+    """Phase 6: the w4 decode step, 32 chained greedy steps."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.models import build_transformer_decode_step
+    from anakin_tpu_torch.quant import weight_only_quantize
+
+    t0 = time.perf_counter()
+    g = weight_only_quantize(build_transformer_decode_step(
+        cfg, LLM_BATCH, params, kv_cache_dtype="int8", aligned_pos=True), bits=4)
+    n_w4 = sum(n.op == "dense_w4" for n in g.nodes.values())
+    if n_w4 != 2 * cfg.layers + 1:
+        raise AssertionError(f"expected {2 * cfg.layers + 1} dense_w4 nodes, "
+                             f"got {n_w4}")
+    net = ak.Net(g, precision="bf16", device="cuda")
+    logits_e = g.outputs[0]
+    cache_edges = [(f"cache_{kv}_{i}", g.nodes[f"dec_att_{i}"].outputs[1 + j])
+                   for i in range(cfg.layers) for j, kv in enumerate("kv")]
+    shape = (LLM_BATCH, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    caches0 = {k: torch.zeros(shape, dtype=torch.int8, device="cuda")
+               for k, _ in cache_edges}
+
+    def run(steps):
+        caches, tok = dict(caches0), torch.zeros(
+            (LLM_BATCH, 1), dtype=torch.int32, device="cuda")
+        for t in range(steps):
+            out = net.prediction(dict(caches, input=tok, pos=torch.full(
+                (LLM_BATCH,), t, dtype=torch.int32, device="cuda")))
+            tok = torch.argmax(out[logits_e][:, 0, :], -1).to(torch.int32)[:, None]
+            caches = {k: out[e] for k, e in cache_edges}
+        return tok, out[logits_e]
+
+    run(2)                                        # warm-up
+    torch.cuda.synchronize()
+    log(f"[llm B] w4 graph, weights and warm-up: {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    tok, logits = run(NEW)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[llm B] launches in {NEW} decode steps: {counts}")
+    if counts != {"matmul_int8": 0, "conv3x3_int8": 0, "flash_attention": 0,
+                  "matmul_w4": n_w4 * NEW}:
+        raise AssertionError(f"expected {n_w4} matmul_w4 launches a step, "
+                             f"got {counts}")
+    if not torch.isfinite(logits.float()).all() or tok.min() < 0 \
+            or tok.max() >= cfg.vocab:
+        raise AssertionError("bad w4 decode output")
+    step_ms = cuda_ms(lambda: run(NEW), iters=1, warmup=0, windows=3) / NEW
+    res = dict(batch=LLM_BATCH, steps=NEW, precision="bf16", kv_cache="int8",
+               dense_w4_nodes=n_w4, launches=counts, ms_per_step=step_ms,
+               tokens_per_s=LLM_BATCH / step_ms * 1e3)
+    log(f"[llm B] w4 decode b{LLM_BATCH}: {step_ms:.3f} ms/token step, "
+        f"{LLM_BATCH / step_ms * 1e3:.1f} tokens/s | {card}")
+    feed = dict(caches0, input=tok, pos=torch.full(
+        (LLM_BATCH,), NEW, dtype=torch.int32, device="cuda"))
+    res["profile"] = profile_step(lambda: net.prediction(feed), step_ms, "llm B")
+    report["llm_b"] = res
+    return counts
+
+
+def _flash_bound(q, k, n_pairs, segs):
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if segs is not None:
+        nbytes += 4 * (segs.numel() * 2)
+    ops = 4 * q.shape[1] * q.shape[3] * n_pairs
+    peak = PEAK_BF16_OPS if q.dtype == torch.bfloat16 else PEAK_F32_OPS
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls):
+    """flash_attention against mha_reference on the card; tolerance as in
+    csrc/flash_attention.cu: float32 |d| <= 3e-5 max|v|; bf16 |d| <=
+    2^-7 |want| + 3e-5 max|v|."""
+    import torch.nn.functional as F
+    from anakin_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                          mha_reference)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, H, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
+    t = torch.arange(S, device="cuda")
+    segs = None
+    allowed = torch.ones((B, S, S), dtype=torch.bool, device="cuda")
+    if lengths is not None:
+        segs = (t[None] >= torch.tensor(lengths, device="cuda")[:, None]).to(torch.int32)
+        allowed &= segs[:, :, None] == segs[:, None, :]
+    if causal:
+        allowed &= (t[None, :] <= t[:, None])[None]
+    n_pairs = int(allowed.sum())
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, segs, segs, causal=causal)
+    want = mha_reference(q, k, v, segs, segs, causal=causal)
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    vmax = float(v.float().abs().max())
+    tol = 3e-5 * vmax + (2.0 ** -7 * want.float().abs() if dtype == torch.bfloat16
+                         else 0.0)
+    ok = bool((d <= tol).all())
+    iters = 20 if S <= 512 else 5
+    ms = graph_ms(lambda: flash_attention(q, k, v, segs, segs, causal=causal),
+                  iters=iters)
+    plain_ms = graph_ms(lambda: mha_reference(q, k, v, segs, segs,
+                                              causal=causal), iters=2)
+    flash_attention.launches = launches
+    kr = torch.repeat_interleave(k, H // Hkv, dim=1)
+    vr = torch.repeat_interleave(v, H // Hkv, dim=1)
+    if lengths is None:
+        lib = lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
+    else:
+        mask = allowed[:, None]
+        lib = lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    library_ms = graph_ms(lib, iters=iters)
+    bms, by = _flash_bound(q, k, n_pairs, segs)
+    return dict(kernel="flash_attention", shape=[B, H, Hkv, S, D],
+                dtype=str(dtype).split(".")[-1], causal=causal,
+                lengths=lengths, ok=ok, max_abs_err=float(d.max()),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bms, bound_by=by, calls_per_run=calls)
+
+
+def _int4pack_yardstick(x, packed, scales, group):
+    """(weights, scales-and-zeros, output) of `torch._weight_int4pack_mm`
+    on the same weights repacked to its layout (unsigned nibbles q + 8,
+    even k in the high nibble, zero point 0), or the reason it cannot be
+    called."""
+    from anakin_tpu_torch.kernels.matmul_w4 import unpack_w4
+
+    if x.dtype != torch.bfloat16:
+        return None, "takes bf16 x only on CUDA"
+    try:
+        q = unpack_w4(packed, torch.ones_like(scales), group, torch.float32)
+        qu = (q.to(torch.int32) + 8).t().contiguous()            # [N, K]
+        w_u8 = ((qu[:, ::2] << 4) | qu[:, 1::2]).to(torch.uint8)
+        wp = torch._convert_weight_to_int4pack(w_u8, 8)
+        sz = torch.stack([scales.to(torch.bfloat16),
+                          torch.zeros_like(scales, dtype=torch.bfloat16)],
+                         dim=-1).contiguous()
+        return (wp, sz, torch._weight_int4pack_mm(x, wp, group, sz)), None
+    except Exception as e:  # the yardstick only; the port never calls it
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def check_w4(M, K, N, G, dtype, gen, calls):
+    """matmul_w4 against matmul_w4_plain on the card.  Tolerance: the two
+    sum the same float32 products in another order, and any order is
+    within K * 2^-24 * (|x| @ |W|) of the exact sum, so |d| <= 2 K 2^-24
+    (|x| @ |W|)."""
+    from anakin_tpu_torch.kernels.matmul_w4 import (matmul_w4, matmul_w4_plain,
+                                                    unpack_w4)
+    from anakin_tpu_torch.quant.quantize import _w4_group_quantize
+
+    rng = np.random.default_rng(M * 7 + K + N)
+    p_np, s_np, g = _w4_group_quantize(
+        rng.normal(0.0, K ** -0.5, (K, N)).astype(np.float32), G)
+    packed, scales = torch.from_numpy(p_np).cuda(), torch.from_numpy(s_np).cuda()
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    launches = matmul_w4.launches
+    got = matmul_w4(x, packed, scales, group=g)
+    want = matmul_w4_plain(x, packed, scales, group=g)
+    w = unpack_w4(packed, scales, g, dtype)
+    mag = x.float().abs() @ w.float().abs()
+    d = (got - want).abs()
+    ok = bool((d <= 2 * K * 2.0 ** -24 * mag).all())
+    # enough copies of the weights that every call reads them from HBM
+    n_copies = max(1, -(-100 * 2 ** 20 // (packed.numel() + 4 * scales.numel())))
+    copies = [(x, packed.clone(), scales.clone()) for _ in range(n_copies)]
+    ms = graph_ms(rotating(lambda *a: matmul_w4(*a, group=g), copies),
+                  iters=2 * n_copies)
+    plain_ms = graph_ms(rotating(lambda *a: matmul_w4_plain(*a, group=g),
+                                 copies), iters=n_copies)
+    matmul_w4.launches = launches
+    lib, why = _int4pack_yardstick(x, packed, scales, g)
+    library_ms = lib_err = None
+    if lib is not None:
+        wp, sz, lib_out = lib
+        lib_err = float((lib_out.float() - want).abs().max() / want.abs().max())
+        if lib_err > 2e-2:
+            why = f"disagrees with the function (rel err {lib_err:.3g})"
+        else:
+            library_ms = graph_ms(rotating(
+                lambda w_, s_: torch._weight_int4pack_mm(x, w_, g, s_),
+                [(wp.clone(), sz.clone()) for _ in range(n_copies)]),
+                iters=2 * n_copies)
+    dequant_mm_ms = graph_ms(rotating(torch.matmul, [(x, w.clone())
+                                                     for _ in range(n_copies)]),
+                             iters=2 * n_copies)
+    xb = x.element_size()
+    nbytes = K // 2 * N + (K // g) * N * 4 + M * K * xb + M * N * 4
+    ops = 2 * M * N * K
+    peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    bms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+    return dict(kernel="matmul_w4", shape=[M, K, N, g],
+                dtype=str(dtype).split(".")[-1], ok=ok,
+                max_abs_err=float(d.max()), max_rel_to_mag=float((d / mag).max()),
+                ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_rel_err=lib_err, library_none_reason=why,
+                dequant_bf16_matmul_ms=dequant_mm_ms, bound_ms=bms, bound_by=by,
+                calls_per_run=calls)
+
+
+def llm_kernels(report, cfg):
+    """Phase 7: both LLM kernels against their plain versions."""
+    E, F_ = cfg.embed, 4 * cfg.embed
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    B, H, Hkv, D = LLM_BATCH, cfg.heads, cfg.kv_heads, cfg.head_dim
+    flash_cases = [  # (B, H, Hkv, S, dtype, causal, lengths, calls per generate)
+        (B, H, Hkv, PROMPT, torch.bfloat16, True, None, cfg.layers),
+        (2, H, Hkv, 300, torch.bfloat16, True, [300, 173], 0),
+        (2, H, Hkv, 300, torch.float32, True, [300, 173], 0),
+        (B, H, Hkv, PROMPT, torch.float32, True, None, 0),
+        (B, H, Hkv, 2048, torch.bfloat16, True, None, 0),
+    ]
+    w4_cases = [  # (M, K, N, dtype, calls per 32 steps)
+        (B, E, F_, torch.bfloat16, cfg.layers * NEW),
+        (B, F_, E, torch.bfloat16, cfg.layers * NEW),
+        (B, E, cfg.vocab, torch.bfloat16, NEW),
+        (5, E, F_, torch.bfloat16, 0),
+        (4096, E, F_, torch.bfloat16, 0),
+        (B, F_, E, torch.float32, 0),
+        (5, E, F_, torch.float32, 0),
+        (4096, E, F_, torch.float32, 0),
+    ]
+    results = []
+    for b, h, hkv, s, dt, causal, lens, calls in flash_cases:
+        r = check_flash(b, h, hkv, s, D, dt, causal, lens, gen, calls)
+        results.append(r)
+        log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
+            f" lengths={lens} x{calls} err={r['max_abs_err']:.3g} ok={r['ok']} "
+            f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
+            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})")
+    for m, k, n, dt, calls in w4_cases:
+        r = check_w4(m, k, n, 128, dt, gen, calls)
+        results.append(r)
+        lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"[kernel] matmul_w4 {m}x{k}->{n} {r['dtype']} x{calls} "
+            f"err={r['max_abs_err']:.3g} ({r['max_rel_to_mag']:.2g} of |x|@|W|) "
+            f"ok={r['ok']} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
+            f"int4pack_mm={lib} dequantized-bf16-matmul="
+            f"{r['dequant_bf16_matmul_ms']:.4f} bound={r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel differs from its plain version: {bad}")
+    report["llm_kernel_configs"] = results
+    return results
+
+
+def llm_cpu_gpu(report, cfg_full):
+    """Phase 8: full width, 2 layers, batch 2, 512-token prompt, on the
+    card (flash prefill, kernels) and on the CPU (dense prefill, plain
+    versions)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.models import (TransformerConfig,
+                                         build_transformer_decode_step,
+                                         make_transformer_params)
+    from anakin_tpu_torch.quant import weight_only_quantize
+    from anakin_tpu_torch.runtime.generate import GenerationSession
+
+    cfg = TransformerConfig(**dict(LLM_CFG, layers=2))
+    params = make_transformer_params(cfg, 1)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, (2, PROMPT))
+    kw = dict(batch=2, params=params, precision="bf16", kv_cache_dtype="int8")
+    sg = GenerationSession(cfg, device="cuda", **kw)
+    sc = GenerationSession(cfg, device="cpu", **kw)
+    if sg._attention_impl(PROMPT) != "flash" or sc._attention_impl(PROMPT):
+        raise AssertionError("the card should take flash and the CPU dense")
+    reset_counts()
+    lg, _ = sg._prefill(torch.from_numpy(prompt).cuda())
+    torch.cuda.synchronize()
+    if read_counts()["flash_attention"] != cfg.layers:
+        raise AssertionError("the card's prefill did not run flash_attention")
+    lc, caches = sc._prefill(torch.from_numpy(prompt))
+
+    g4 = weight_only_quantize(build_transformer_decode_step(
+        cfg, 2, params, kv_cache_dtype="int8", aligned_pos=True), bits=4)
+    tok = torch.argmax(lc[:, 0].float(), -1).to(torch.int32)[:, None]
+    feed = dict(caches, input=tok, pos=torch.full((2,), PROMPT, dtype=torch.int32))
+    reset_counts()
+    dg = ak.Net(g4, "bf16", device="cuda").prediction(
+        {k: v.clone().cuda() for k, v in feed.items()})[g4.outputs[0]]
+    torch.cuda.synchronize()
+    if read_counts()["matmul_w4"] != 2 * cfg.layers + 1:
+        raise AssertionError("the card's w4 step did not run matmul_w4")
+    dc = ak.Net(g4, "bf16", device="cpu").prediction(
+        {k: v.clone() for k, v in feed.items()})[g4.outputs[0]]
+
+    res = {}
+    for name, g_, c_ in (("prefill", lg, lc), ("w4_step", dg, dc)):
+        gf, cf = g_[:, 0].float().cpu(), c_[:, 0].float()
+        scale = float(cf.abs().max())
+        err = float((gf - cf).abs().max())
+        top2 = torch.topk(cf, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        same = gf.argmax(-1) == cf.argmax(-1)
+        decided = gap > LLM_TOL * scale
+        log(f"[cpu/gpu llm] {name}: logits max diff {err:.4g} "
+            f"({err / scale:.3g} of the largest, tolerance {LLM_TOL}), greedy "
+            f"tokens gpu {gf.argmax(-1).tolist()} cpu {cf.argmax(-1).tolist()}, "
+            f"top-2 gap {gap.tolist()}")
+        if err > LLM_TOL * scale:
+            raise AssertionError(f"{name}: GPU and CPU logits differ by {err}")
+        if not bool(same[decided].all()):
+            raise AssertionError(f"{name}: greedy tokens differ where decided")
+        res[name] = dict(max_abs_diff=err, rel_to_max=err / scale,
+                         tokens_equal=same.tolist(), top2_gap=gap.tolist())
+    report["llm_cpu_gpu"] = res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device; this script runs only on a GPU")
+        return 1
+    from anakin_tpu_torch.kernels import _build
+    from anakin_tpu_torch.models import TransformerConfig, make_transformer_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_name_and_power_limit()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} | {card}")
+    report = {"card": card}
+    t_start = time.perf_counter()
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    for name, (path, secs, out) in built.items():
+        log(f"[build] {name}: {secs:.1f} s -> {os.path.relpath(path, ROOT)}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
+
+    # ------------------------------------------------------- 2-4. ResNet
+    results, counts = resnet_phases(report, card)
+    units = {"matmul_int8": "one ResNet-50 forward",
+             "conv3x3_int8": "one ResNet-50 forward"}
+    log(f"[time] ResNet phases done at {time.perf_counter() - t_start:.0f} s")
+
+    # --------------------------------------------------------- 5-8. LLM
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(**LLM_CFG)
+    params = make_transformer_params(cfg, 0)  # built once, shared by A and B
+    log(f"[llm] 1B-class weights ({sum(v.size for v in params.values()) / 1e6:.1f}"
+        f" M params, seed 0): {time.perf_counter() - t0:.1f} s")
+    counts["flash_attention"] = llm_path_a(report, cfg, params, card)[
+        "flash_attention"]
+    counts["matmul_w4"] = llm_path_b(report, cfg, params, card)["matmul_w4"]
+    del params
+    units.update(flash_attention="one generate (its 512-token prefill)",
+                 matmul_w4=f"{NEW} w4 decode steps")
+    results += llm_kernels(report, cfg)
+    llm_cpu_gpu(report, cfg)
+    log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
+
+    kernels = summarize(results, counts, units)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(report, kernels=kernels), f, indent=1)
