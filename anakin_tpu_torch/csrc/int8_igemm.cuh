@@ -31,12 +31,11 @@
 // Numerics follow the Pallas kernels bit for bit: every epilogue operation
 // is a separately rounded IEEE float op (__fmul_rn / __fadd_rn, so nvcc
 // cannot contract them into FMAs), rounding is half-to-even (rintf), and
-// the requant multiplies by the reciprocal passed in by the caller.
+// the requant multiplies by the reciprocal passed in by the caller.  The
+// element steps (activate, requant, store_out) are in int8_epilogue.cuh.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_epilogue.cuh"
 
 namespace ak {
 
@@ -51,10 +50,7 @@ constexpr int THREADS = 256;
 constexpr int LDC = BN + 4;
 static_assert(64 * LDC * 4 <= 2 * (BM + BN) * LDS, "staging tile too big");
 
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_LEAKY = 3,
-           ACT_SIGMOID = 4, ACT_TANH = 5 };
 enum ResKind { RES_NONE = 0, RES_F32 = 1, RES_BF16 = 2, RES_S8 = 3 };
-enum OutKind { OUT_S8 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
 
 struct Params {
   const int8_t* a;
@@ -74,22 +70,6 @@ struct Params {
   int vec_epi;         // N % 4 == 0 and every epilogue pointer 16-byte aligned
 };
 
-__device__ __forceinline__ float activate(float y, int act, float alpha) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(y, 0.0f);
-    case ACT_RELU6: return fminf(fmaxf(y, 0.0f), 6.0f);
-    case ACT_LEAKY: return y >= 0.0f ? y : __fmul_rn(y, alpha);
-    case ACT_SIGMOID: return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-    case ACT_TANH: return tanhf(y);
-    default: return y;
-  }
-}
-
-__device__ __forceinline__ int8_t requant(float y, float inv) {
-  const float q = fminf(fmaxf(rintf(__fmul_rn(y, inv)), -127.0f), 127.0f);
-  return static_cast<int8_t>(static_cast<int>(q));
-}
-
 // y before the activation, for one element.
 __device__ __forceinline__ float dequant(const Params& p, size_t idx, int n,
                                          int acc, float scale, float bias) {
@@ -108,13 +88,7 @@ __device__ __forceinline__ float dequant(const Params& p, size_t idx, int n,
 }
 
 __device__ __forceinline__ void store_one(const Params& p, size_t idx, float y) {
-  if (p.out_kind == OUT_S8) {
-    static_cast<int8_t*>(p.out)[idx] = requant(y, p.inv_out_scale);
-  } else if (p.out_kind == OUT_F32) {
-    static_cast<float*>(p.out)[idx] = y;
-  } else {
-    static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(y);
-  }
+  store_out(p.out, p.out_kind, idx, y, p.inv_out_scale);
 }
 
 // Four neighbouring outputs out[m, n .. n+3], n % 4 == 0, all in range;

@@ -1,18 +1,16 @@
 """Stem space-to-depth rewrite.
 
-The first conv of an ImageNet CNN (7x7 stride-2 over 3 RGB channels) is
-MXU-hostile: int8 inputs tile channels to 32 lanes ((8,128)(4,1) packing),
-so C=3 wastes 10.7x of every vector register, and the stride-2 window
-halves tap reuse.  Measured on v5e b128 (docs/BENCH_NOTES.md round-2
-study): direct int8 stem 0.611 ms vs space-to-depth 0.536 ms, and 0.452 ms
-in bf16 (C=12 only pads to 16 sublane-pairs).
+The first conv of an ImageNet CNN (a k x k stride-2 conv over 3 RGB
+channels) is a poor fit for wide matrix units: C = 3 fills a fraction of
+each operand tile, and the stride-2 window halves tap reuse.  The JAX
+package rewrites it for its hardware; the port keeps the rewrite so that
+both packages build the same graph.
 
 Rewrite (bit-exact, verified in tests): pad the 7x7 kernel to 8x8 with a
 zero row/column at the top-left, view the input as 2x2 space-to-depth
 blocks (C: 3 -> 12), and convolve 4x4 stride-1 with asymmetric padding
 (2, 1).  The conv node is additionally pinned to fp precision
-(`graph.precisions`) so the quantizer leaves it out of the int8 region —
-the bf16 lowering is the measured fastest for this shape class.
+(`graph.precisions`) so the quantizer leaves it out of the int8 region.
 
 General form: any k-odd, stride-2, pad-(k//2) conv with cin <= 4.
 """
@@ -74,7 +72,7 @@ def stem_space_to_depth(graph: Graph) -> Graph:
         phi = nk - 1 - plo
         node.attrs["strides"] = (1, 1)
         node.attrs["padding"] = ((plo, phi), (plo, phi))
-        # keep the stem out of int8: C=12 in bf16 is the measured fastest
+        # keep the stem out of int8, as the JAX package does
         g.precisions.setdefault(node.name, "fp32")
         g.applied_passes.append("stem_space_to_depth")
         break  # one stem per graph

@@ -24,12 +24,26 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
-__all__ = ["SOURCES", "build", "build_all", "load"]
+__all__ = ["SOURCES", "build", "build_all", "load", "runs_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "anakin_tpu_torch")
-SOURCES = ("matmul_int8", "conv3x3_int8", "flash_attention", "matmul_w4")
+SOURCES = ("matmul_int8", "conv3x3_int8", "flash_attention", "matmul_w4",
+           "depthwise3x3_int8")
+
+
+def runs_plain(device, kernel: str) -> bool:
+    """How a kernel wrapper treats a tensor on `device`: True for the CPU
+    (the plain version computes the result) and for `meta` (shape
+    inference: the plain version computes shapes only, no values); False
+    for CUDA, where the wrapper launches its kernel.  Any other device
+    raises, so nothing falls back quietly."""
+    if device.type in ("cpu", "meta"):
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, not {device}")
+    return False
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

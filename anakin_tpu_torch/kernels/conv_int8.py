@@ -87,10 +87,8 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
               out_scale=out_scale, out_dtype=out_dtype,
               residual_scale=residual_scale)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x.device, "conv3x3_int8"):
         return conv3x3_int8_plain(x, w, w_scale, bias, residual, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_int8 runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv3x3_int8 operands must be contiguous")
     lib = _lib()

@@ -110,11 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Sq, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
+    if _build.runs_plain(q.device, "flash_attention"):
         return mha_reference(q, k, v, q_segment_ids, kv_segment_ids,
                              causal=causal, sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA flash_attention takes head dims "
                          f"{_HEAD_DIMS}, got {D}")

@@ -177,10 +177,8 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, w_scale: torch.Tensor,
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
               out_scale=out_scale, out_dtype=out_dtype,
               residual_scale=residual_scale)
-    if a.device.type == "cpu":
+    if _build.runs_plain(a.device, "matmul_int8"):
         return matmul_int8_plain(a, b, w_scale, bias, residual, **kw)
-    if a.device.type != "cuda":
-        raise ValueError(f"matmul_int8 runs on cuda or cpu, not {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_int8 operands must be contiguous")
     lib = _lib()

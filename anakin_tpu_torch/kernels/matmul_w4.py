@@ -83,10 +83,8 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
               group: int, variant: str = "v1") -> torch.Tensor:
     """x [M, K] @ dequant(packed [K/2, N], scales [K/G, N]) -> [M, N] float32."""
     _check(x, packed, scales, group, variant)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x.device, "matmul_w4"):
         return matmul_w4_plain(x, packed, scales, group=group)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_w4 runs on cuda or cpu, not {x.device}")
     if (group // 2) % 32:
         raise ValueError(f"the CUDA matmul_w4 takes groups that are multiples "
                          f"of 64, got {group}")

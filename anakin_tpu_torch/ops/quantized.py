@@ -7,12 +7,16 @@ Scale conventions (as in the JAX package):
   dequant: acc_int32 * (in_scale * w_scale[oc])
 
 PyTorch has no int8 convolution on CUDA, so every int8 conv and dense goes
-through the port's two kernels, whatever the node's `impl` attribute says
+through the port's int8 kernels, whatever the node's `impl` attribute says
 (this port has no XLA lowering to choose):
   "gemm" kind (1x1 s1 p0) and dense_int8  -> matmul_int8
   "conv3x3" kind (3x3 s1 p1)              -> conv3x3_int8
+  "dw3x3" kind with a [3, 3, 1, C] weight
+  over C channels and no residual
+  (depthwise 3x3 p1, stride 1 or 2)       -> depthwise3x3_int8
   any other dense conv (strided, padded
   otherwise, other kernel sizes)          -> int8 im2col, then matmul_int8
+  any other grouped conv                  -> NotImplementedError
 On a CPU tensor the kernels run their plain versions.
 
 The weight-only ops keep activations in float: `dense_w8` (int8 weights,
@@ -33,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.conv_int8 import conv3x3_int8
+from ..kernels.depthwise_int8 import depthwise3x3_int8
 from ..kernels.matmul_int8 import matmul_int8
 from ..kernels.matmul_w4 import matmul_w4
 from .nn import _epilogue, conv_pads, pair, pool2d
@@ -136,10 +141,22 @@ def conv2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     if x.dtype != torch.int8:
         x = quantize_array(x, in_scale)
     kind = conv_kind(node)
-    if int(node.attr("groups", 1)) != 1:
-        raise NotImplementedError("grouped int8 conv is not ported yet")
     kw = _epilogue_kwargs(node, in_scale)
     kh, kw_ = int(w.shape[0]), int(w.shape[1])
+    if int(node.attr("groups", 1)) != 1:
+        # the JAX package's depthwise route (`_conv_kind` "dw3x3" and
+        # these shapes); every other grouped conv it leaves to XLA
+        if not (kind == "dw3x3" and (kh, kw_) == (3, 3) and w.shape[2] == 1
+                and w.shape[3] == x.shape[3] and residual is None):
+            raise NotImplementedError(
+                f"int8 grouped conv {node.name}: only a depthwise 3x3 pad-1 "
+                f"stride-1/2 conv without a residual is ported (weight "
+                f"{tuple(w.shape)}, groups {node.attr('groups')}, residual "
+                f"{residual is not None}; ROADMAP, modules to port)")
+        del kw["residual_scale"]
+        return [depthwise3x3_int8(x.contiguous(), w, w_scale, bias,
+                                  stride=pair(node.attr("strides", (1, 1)))[0],
+                                  **kw)]
     if kind == "conv3x3" and (kh, kw_) == (3, 3):
         return [conv3x3_int8(
             x.contiguous(), w, w_scale, bias,

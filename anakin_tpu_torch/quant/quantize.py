@@ -67,12 +67,11 @@ def quantize_graph(
     by `calibrate`).  Nodes whose input edge has no scale, or whose
     precision override says "fp32", stay float.
 
-    `skip_depthwise` keeps depthwise convs fp (their K-depth-9 groups gain
-    nothing on the MXU and the requant boundaries are pure VPU overhead).
-    Measured on v5e (docs/BENCH_NOTES.md): helps MobileNet-v2 (+6% at
-    b32), within noise for v1 — and at larger batches bf16 outright beats
-    int8 on depthwise-dominated nets, so consider skipping quantization
-    entirely for that model class.
+    `skip_depthwise` keeps depthwise convs float.  The JAX package added it
+    for its own hardware, where a depthwise conv's 9-deep groups gain
+    nothing from int8 matrix units; on the port, int8 depthwise convs run
+    on `depthwise3x3_int8` and no measurement on the H100 has compared the
+    two yet (ROADMAP).
     """
     g = graph.clone()
     scales = dict(scales if scales is not None else g.scales)
@@ -98,11 +97,7 @@ def quantize_graph(
             groups = int(node.attr("groups", 1))
             cin = w.shape[2] * groups
             if groups > 1 and groups == cin:
-                # depthwise: K-depth 9 per group is MXU-hostile either way
-                # and the requant boundaries are pure overhead — measured
-                # int8 SLOWER than bf16 on MobileNet-v2 (BENCH_NOTES;
-                # the reference hit the same on ARM, README.md:135)
-                continue
+                continue  # depthwise: one input channel per group
         int8_nodes.add(node.name)
 
     # --- step 2: decide int8 edges (producer emits, ALL consumers take)
@@ -137,11 +132,9 @@ def quantize_graph(
             # input scale, depthwise policy) whose consumers ALL take int8
             # anyway: fuse the requant into ITS epilogue so the boundary
             # tensor is written ONCE as int8 instead of fp32 + quantize-on
-            # -read.  Measured motivation: the bf16-pinned ResNet stem
-            # wrote a 411 MB f32 tensor the maxpool re-read — 0.64 ms of
-            # the 5.9 ms b128 program (round-3 in-context profile,
-            # artifacts/profile_r03.json).  Exact: max-pool commutes with
-            # the monotone round/clip, so stage-1 inputs are bit-identical.
+            # -read (the pinned stem's output is the largest such tensor).
+            # Exact: max-pool commutes with the monotone round/clip, so
+            # stage-1 inputs are bit-identical.
             float_epilogue = (not produces_int8
                               and node.op in _INT8_COMPUTE
                               and node.name not in int8_nodes)

@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through the entry points a user calls:
+Drives the port's three main paths through the entry points a user calls:
 ResNet-50 int8 inference at 224 px and batch 128 (the JAX package's
 `bench.py` configuration, with its checked-in scale table and random weights
-from seed 0), and 1B-class LLM serving (vocab 32000, E 2048, 16 layers, 16
+from seed 0), 1B-class LLM serving (vocab 32000, E 2048, 16 layers, 16
 heads over 8 kv heads, max_seq 2048: the JAX package's `llm1b_*`
-configuration, random weights from seed 0, built once for both LLM paths).
-Phases:
+configuration, random weights from seed 0, built once for both LLM paths),
+and MobileNet v1/v2 int8 inference at 224 px and batch 128 (the JAX
+package's suite configuration: random weights from seed 0, scales from
+`calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
+net).  Phases:
 
   1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
               per source, all at once) and print what ptxas says;
@@ -45,7 +48,29 @@ Phases:
               on the card (flash prefill) and on the CPU (dense prefill):
               last-position logits and one teacher-forced w4 decode step
               within 1.5% of the largest logit, greedy tokens equal wherever
-              the CPU's top-2 gap exceeds that.
+              the CPU's top-2 gap exceeds that;
+  9. mobilenet for v1, then v2: `calibrate` on the card, `quantize_graph`,
+              `Net(precision="bf16")`, one b128 forward with the counts set
+              to 0 just before and read just after: depthwise3x3_int8 must
+              launch 13 / 17 times, matmul_int8 14 / 35, conv3x3_int8
+              never; softmax rows finite and summing to 1; ms/step and
+              img/s from CUDA events, one profiled step;
+ 10. kernel   depthwise3x3_int8 against its plain version at every distinct
+              shape of the two forwards (9 + 10) with the path's epilogue,
+              plus a ragged C, odd H/W, float32 and bf16 outputs,
+              leaky_relu, no bias and a misaligned x: int8 outputs equal,
+              float outputs within rtol 1e-6; timed by CUDA-graph replay
+              with x rotated out of L2, beside its bound, its plain version
+              and, as context only, cuDNN's bf16 grouped conv;
+ 11. cpu/gpu  v1 and v2 at b2 from one graph: `calibrate` scales on the
+              card and the CPU within rtol 1e-4; the int8 net on both, node
+              by node on the CPU's inputs (int8 kernel outputs equal, the
+              fp32 stem's requant within 1 LSB, float outputs within 8e-3),
+              whole from the CPU's int8 stem output (int8 edges equal,
+              softmax within rtol 5e-3 / atol 1e-4), and whole from the
+              image (top-1 equal wherever the CPU's top-2 gap exceeds twice
+              that tolerance: the fp32 stem conv may round an element the
+              other way on the two devices, and random weights amplify it).
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  Any failed check raises and
@@ -80,6 +105,8 @@ KERNEL_META = {
                         "anakin_tpu/kernels/flash_attention.py:101"),
     "matmul_w4": ("anakin_tpu_torch/csrc/matmul_w4.cu",
                   "anakin_tpu/kernels/matmul_w4.py:129"),
+    "depthwise3x3_int8": ("anakin_tpu_torch/csrc/depthwise3x3_int8.cu",
+                          "anakin_tpu/kernels/depthwise_int8.py:171"),
 }
 
 
@@ -176,7 +203,15 @@ def kernel_calls(graph, shapes):
                    bias=bool(node.attr("has_bias")),
                    residual=bool(node.attr("has_residual")),
                    requant=node.attr("out_scale") is not None)
-        if (node.op == "conv2d_int8" and conv_kind(node) == "conv3x3"
+        if node.op == "conv2d_int8" and conv_kind(node) == "dw3x3":
+            n, h, w_, c = shapes[node.inputs[0]]
+            out_kind = ("int8" if epi["requant"]
+                        else node.attr("out_dtype", "float32"))
+            calls.append(("depthwise3x3_int8", dict(
+                N=n, H=h, W=w_, C=c, stride=int(node.attr("strides")[0]),
+                activation=epi["activation"], bias=epi["bias"],
+                out=out_kind)))
+        elif (node.op == "conv2d_int8" and conv_kind(node) == "conv3x3"
                 and w.shape[:2] == (3, 3)):
             n, h, w_, o = out
             calls.append(("conv3x3_int8", dict(N=n, H=h, W=w_, C=w.shape[2],
@@ -288,11 +323,13 @@ def summarize(results, counts, units):
 
 
 def kernel_wrappers():
-    from anakin_tpu_torch.kernels import (conv3x3_int8, flash_attention,
-                                          matmul_int8, matmul_w4)
+    from anakin_tpu_torch.kernels import (conv3x3_int8, depthwise3x3_int8,
+                                          flash_attention, matmul_int8,
+                                          matmul_w4)
 
     return {"matmul_int8": matmul_int8, "conv3x3_int8": conv3x3_int8,
-            "flash_attention": flash_attention, "matmul_w4": matmul_w4}
+            "flash_attention": flash_attention, "matmul_w4": matmul_w4,
+            "depthwise3x3_int8": depthwise3x3_int8}
 
 
 def reset_counts():
@@ -302,6 +339,10 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def no_launches():
+    return {name: 0 for name in kernel_wrappers()}
 
 
 def profile_step(fn, step_ms, tag):
@@ -360,8 +401,7 @@ def resnet_phases(report, card):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[path] launches in one forward: {counts}")
-    if counts != {"matmul_int8": 40, "conv3x3_int8": 13, "flash_attention": 0,
-                  "matmul_w4": 0}:
+    if counts != dict(no_launches(), matmul_int8=40, conv3x3_int8=13):
         raise AssertionError(f"expected 40 + 13 kernel launches, got {counts}")
     yf = y.float()
     if tuple(y.shape) != (BATCH, 1000) or not torch.isfinite(yf).all():
@@ -474,8 +514,7 @@ def llm_path_a(report, cfg, params, card):
     gen_s = time.perf_counter() - t0
     counts = read_counts()
     log(f"[llm A] launches in one generate (1 prefill + {NEW} steps): {counts}")
-    if counts != {"matmul_int8": 0, "conv3x3_int8": 0,
-                  "flash_attention": cfg.layers, "matmul_w4": 0}:
+    if counts != dict(no_launches(), flash_attention=cfg.layers):
         raise AssertionError(f"expected {cfg.layers} flash_attention launches "
                              f"in the prefill, got {counts}")
     new = tokens[:, PROMPT:]
@@ -551,8 +590,7 @@ def llm_path_b(report, cfg, params, card):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[llm B] launches in {NEW} decode steps: {counts}")
-    if counts != {"matmul_int8": 0, "conv3x3_int8": 0, "flash_attention": 0,
-                  "matmul_w4": n_w4 * NEW}:
+    if counts != dict(no_launches(), matmul_w4=n_w4 * NEW):
         raise AssertionError(f"expected {n_w4} matmul_w4 launches a step, "
                              f"got {counts}")
     if not torch.isfinite(logits.float()).all() or tok.min() < 0 \
@@ -824,6 +862,389 @@ def llm_cpu_gpu(report, cfg_full):
     report["llm_cpu_gpu"] = res
 
 
+# --------------------------------------------------------------- MobileNet
+
+# routed int8 nodes per forward: depthwise3x3_int8, matmul_int8
+MOBILENETS = {"mobilenet_v1": (13, 14), "mobilenet_v2": (17, 35)}
+# card vs CPU softmax, as the ResNet phase holds it
+SOFT_RTOL, SOFT_ATOL = 5e-3, 1e-4
+
+
+def mobilenet_builder(name):
+    from anakin_tpu_torch import models
+
+    return getattr(models, "build_" + name)
+
+
+def mobilenet_scales(name, device=None):
+    """The JAX package's suite recipe: `calibrate(method="max")` of the
+    optimized b1 graph over two b1 batches from default_rng(0)."""
+    from anakin_tpu_torch import optimize
+    from anakin_tpu_torch.quant import calibrate
+
+    rng = np.random.default_rng(0)
+    cal = [{"input": rng.normal(size=(1, IMAGE, IMAGE, 3)).astype(np.float32)}
+           for _ in range(2)]
+    g1 = optimize(mobilenet_builder(name)(batch=1, image_size=IMAGE))
+    return calibrate(g1, cal, method="max", device=device)
+
+
+def mobilenet_path(name, report, card):
+    """Phase 9 for one model: calibrate on the card, quantize, one b128
+    forward with the counts read around it, ms/step, a profiled step.
+    Returns the launch counts and the forward's depthwise calls."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.quant import quantize_graph
+    from anakin_tpu_torch.runtime.net import build_forward
+
+    n_dw, n_mm = MOBILENETS[name]
+    t0 = time.perf_counter()
+    scales = mobilenet_scales(name)                # on the card
+    t_cal = time.perf_counter() - t0
+    g = quantize_graph(ak.optimize(mobilenet_builder(name)(
+        batch=BATCH, image_size=IMAGE)), scales)
+    net = ak.Net(g, precision="bf16")              # device: CUDA by default
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+    out_edge = g.outputs[0]
+    net.prediction({"input": x})                   # warm-up
+    torch.cuda.synchronize()
+    log(f"[{name}] calibrate on the card {t_cal:.1f} s; graph, weights and "
+        f"first forward {time.perf_counter() - t0:.1f} s")
+
+    reset_counts()
+    y = net.prediction({"input": x})[out_edge]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[{name}] launches in one forward: {counts}")
+    if counts != dict(no_launches(), depthwise3x3_int8=n_dw, matmul_int8=n_mm):
+        raise AssertionError(f"expected {n_dw} depthwise3x3_int8 and {n_mm} "
+                             f"matmul_int8 launches, got {counts}")
+    yf = y.float()
+    if tuple(y.shape) != (BATCH, 1000) or not torch.isfinite(yf).all():
+        raise AssertionError(f"bad output {tuple(y.shape)}")
+    if (yf.sum(-1) - 1).abs().max() > 2e-2:  # bf16 softmax rows
+        raise AssertionError("softmax rows do not sum to 1")
+
+    step_ms = cuda_ms(lambda: net.prediction({"input": x}), iters=10)
+    res = dict(batch=BATCH, image=IMAGE, precision="bf16",
+               calibrate_s=t_cal, launches=counts, ms_per_step=step_ms,
+               img_per_s=BATCH / step_ms * 1e3)
+    log(f"[{name}] int8 b{BATCH} {IMAGE}px: {step_ms:.3f} ms/step, "
+        f"{BATCH / step_ms * 1e3:.1f} img/s | {card}")
+    res["profile"] = profile_step(lambda: net.prediction({"input": x}),
+                                  step_ms, name)
+    report[name] = res
+
+    edges = [e for n in g.nodes.values() for e in n.outputs]
+    fwd, _ = build_forward(g, "bf16", tap_edges=edges)
+    with torch.inference_mode():
+        shapes = {k: tuple(v.shape)
+                  for k, v in fwd(net.params, {"input": x}).items()}
+    calls = [cfg for kernel, cfg in kernel_calls(g, shapes)
+             if kernel == "depthwise3x3_int8"]
+    return counts, calls
+
+
+def _dw_bound(cfg):
+    n, h, w, c, s = (cfg[k] for k in ("N", "H", "W", "C", "stride"))
+    out_elems = n * ((h - 1) // s + 1) * ((w - 1) // s + 1) * c
+    out_bytes = {"int8": 1, "float32": 4, "bfloat16": 2}[cfg["out"]]
+    nbytes = (n * h * w * c + 9 * c + 4 * c * (2 if cfg["bias"] else 1)
+              + out_elems * out_bytes)
+    ops = 2 * 9 * out_elems
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def check_dw(cfg, gen, misaligned=False):
+    """depthwise3x3_int8 against its plain version on the card: int8
+    outputs equal, float outputs within rtol 1e-6.  Times from CUDA-graph
+    replay with x rotated through >= 100 MB of copies, beside the bound,
+    the plain version and, as context only, cuDNN's bf16 grouped conv on
+    the same shapes (not the same function: PyTorch has no int8 depthwise
+    conv on CUDA)."""
+    import torch.nn.functional as F
+    from anakin_tpu_torch.kernels.depthwise_int8 import (
+        depthwise3x3_int8, depthwise3x3_int8_plain)
+
+    def place(t):
+        """t itself, or a contiguous copy 1 byte off 16-byte alignment
+        (the kernel's narrow path)."""
+        if not misaligned:
+            return t.clone()
+        buf = torch.empty(t.numel() + 1, dtype=torch.int8, device="cuda")
+        return buf[1:].view(t.shape).copy_(t)
+
+    n, h, w_, c, s = (cfg[k] for k in ("N", "H", "W", "C", "stride"))
+    x = place(torch.randint(-127, 128, (n, h, w_, c), generator=gen,
+                            device="cuda", dtype=torch.int8))
+    w = torch.randint(-127, 128, (3, 3, 1, c), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    ws = torch.rand(c, generator=gen, device="cuda") * 0.009 + 0.001
+    bias = torch.randn(c, generator=gen, device="cuda") if cfg["bias"] else None
+    kw = dict(stride=s, in_scale=0.05, activation=cfg["activation"],
+              act_alpha=0.1,
+              out_scale=0.4 if cfg["out"] == "int8" else None,
+              out_dtype=getattr(torch, "float32" if cfg["out"] == "int8"
+                                else cfg["out"]))
+    launches = depthwise3x3_int8.launches
+    got = depthwise3x3_int8(x, w, ws, bias, **kw)
+    want = depthwise3x3_int8_plain(x, w, ws, bias, **kw)
+    torch.cuda.synchronize()
+    if got.dtype == torch.int8:
+        err = float((got.int() - want.int()).abs().max())
+        ok = err == 0
+    else:
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        ok = bool((d <= 1e-6 * want.float().abs()).all())
+    n_copies = max(2, -(-100 * 2 ** 20 // x.numel()))
+    copies = [(place(x),) for _ in range(n_copies)]
+    iters = n_copies * -(-20 // n_copies)
+    ms = graph_ms(rotating(lambda x_: depthwise3x3_int8(x_, w, ws, bias, **kw),
+                           copies), iters=iters)
+    plain_ms = graph_ms(rotating(lambda x_: depthwise3x3_int8_plain(
+        x_, w, ws, bias, **kw), copies[:2]), iters=2)
+    depthwise3x3_int8.launches = launches
+    wb = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()   # [C, 1, 3, 3]
+    try:
+        bf = [(x_.to(torch.bfloat16).permute(0, 3, 1, 2),) for (x_,) in copies]
+        cudnn_ms = graph_ms(rotating(lambda x_: F.conv2d(
+            x_, wb, stride=s, padding=1, groups=c), bf), iters=iters)
+        del bf
+    except Exception as e:  # context only; the port never calls it
+        cudnn_ms = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    bms, by = _dw_bound(cfg)
+    return dict(kernel="depthwise3x3_int8", **cfg, misaligned=misaligned,
+                ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=None, cudnn_bf16_grouped_conv_ms=cudnn_ms,
+                bound_ms=bms, bound_by=by)
+
+
+# extra depthwise cases the path does not give: ragged C, odd H/W at s1,
+# float outputs, leaky_relu, no bias, a misaligned x
+DW_EXTRA = [
+    (dict(N=8, H=56, W=56, C=40, stride=1, activation="relu6", bias=True,
+          out="int8"), False),
+    (dict(N=8, H=57, W=55, C=64, stride=1, activation="relu", bias=True,
+          out="int8"), False),
+    (dict(N=32, H=56, W=56, C=128, stride=1, activation="relu6", bias=True,
+          out="float32"), False),
+    (dict(N=32, H=28, W=28, C=256, stride=2, activation="relu6", bias=True,
+          out="bfloat16"), False),
+    (dict(N=16, H=28, W=28, C=256, stride=1, activation="leaky_relu",
+          bias=True, out="int8"), False),
+    (dict(N=16, H=14, W=14, C=512, stride=2, activation=None, bias=False,
+          out="int8"), False),
+    (dict(N=16, H=28, W=28, C=128, stride=1, activation="relu6", bias=True,
+          out="int8"), True),
+]
+
+
+def dw_kernels(report, path_calls):
+    """Phase 10: depthwise3x3_int8 at every distinct shape of the two
+    forwards and at the extra cases.  `path_calls[name]` lists one
+    forward's calls."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    per_model = {name: {} for name in path_calls}
+    for name, calls in path_calls.items():
+        for cfg in calls:
+            key = tuple(sorted(cfg.items(), key=lambda kv: kv[0]))
+            per_model[name][key] = per_model[name].get(key, 0) + 1
+    distinct = list(dict.fromkeys(k for m in per_model.values() for k in m))
+    cases = [(dict(k), False) for k in distinct] + DW_EXTRA
+    results = []
+    for cfg, misaligned in cases:
+        key = tuple(sorted(cfg.items(), key=lambda kv: kv[0]))
+        r = check_dw(cfg, gen, misaligned)
+        r["calls"] = {name: per_model[name].get(key, 0) for name in per_model}
+        r["calls_per_run"] = sum(r["calls"].values())
+        results.append(r)
+        cud = r["cudnn_bf16_grouped_conv_ms"]
+        cud = f"{cud:.4f}" if isinstance(cud, float) else cud
+        log(f"[kernel] depthwise3x3_int8 {r['N']}x{r['H']}x{r['W']}x{r['C']} "
+            f"s{r['stride']} act={r['activation']} bias={int(r['bias'])} "
+            f"out={r['out']}{' misaligned' if misaligned else ''} "
+            f"x{r['calls']} err={r['max_abs_err']:g} ms={r['ms']:.4f} "
+            f"plain={r['plain_ms']:.3f} bound={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) lib=none cudnn-bf16-grouped-conv={cud}")
+    for name in per_model:
+        rows = [r for r in results if r["calls"][name]]
+
+        def total(key, rows=rows, name=name):
+            return sum(r[key] * r["calls"][name] for r in rows)
+
+        log(f"[kernel] depthwise3x3_int8 per {name} forward: "
+            f"{sum(r['calls'][name] for r in rows)} calls, ms={total('ms'):.4f} "
+            f"bound={total('bound_ms'):.4f} plain={total('plain_ms'):.3f}")
+        report.setdefault(name, {})["dw_kernel_ms"] = total("ms")
+        report[name]["dw_bound_ms"] = total("bound_ms")
+        report[name]["dw_plain_ms"] = total("plain_ms")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel differs from its plain version: {bad}")
+    report["dw_kernel_configs"] = results
+    log("[kernel] depthwise3x3_int8 has no library_ms: PyTorch has no int8 "
+        "depthwise convolution on CUDA (cuDNN's bf16 time is context only)")
+    return results
+
+
+def _node_by_node(gq, x, taps_cpu):
+    """Each node of `gq` on the card and on the CPU, both fed the CPU
+    net's values of its inputs: (largest LSB difference of an int8 output
+    made by an int8 kernel, of any other int8 output, largest relative
+    difference of a float output)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.runtime.net import build_forward
+
+    params = {dev: ak.Net(gq, "bf16", device=dev).params
+              for dev in ("cuda", "cpu")}
+    kernel_lsb = other_lsb = 0
+    float_rel = 0.0
+    for node in topological_order(gq):
+        fwd, _ = build_forward(gq, "bf16", start_from=node.name,
+                               stop_at=node.name)
+        feed = {e: taps_cpu[e] for e in node.inputs if e in taps_cpu}
+        if "input" in node.inputs:
+            feed["input"] = torch.from_numpy(x)
+        with torch.inference_mode():
+            a = fwd(params["cuda"], {k: v.cuda() for k, v in feed.items()})[
+                node.outputs[0]].cpu()
+            b = fwd(params["cpu"], feed)[node.outputs[0]]
+        if b.dtype == torch.int8:
+            d = int((a.int() - b.int()).abs().max())
+            if node.op.endswith("_int8") and node.op != "pool2d_int8":
+                kernel_lsb = max(kernel_lsb, d)
+            else:
+                other_lsb = max(other_lsb, d)
+        else:
+            d = ((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+            float_rel = max(float_rel, float(d))
+    return kernel_lsb, other_lsb, float_rel
+
+
+def mobilenet_cpu_gpu(report):
+    """Phase 11: v1 and v2 at b2, 224 px, from one graph.  `calibrate` on
+    the card and on the CPU; then the int8 net (CPU scales) three ways:
+    node by node on the CPU's inputs (kernel outputs equal), the whole net
+    from the CPU's int8 stem output (softmax within tolerance), and the
+    whole net from the image (the fp32 stem conv may round an element to
+    the other side on the two devices, and random weights amplify that
+    flip downstream: top-1 equal where decided)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.quant import calibrate, quantize_graph
+
+    x2 = np.random.default_rng(2).normal(
+        size=(2, IMAGE, IMAGE, 3)).astype(np.float32)
+    for name in MOBILENETS:
+        g = ak.optimize(mobilenet_builder(name)(batch=2, image_size=IMAGE))
+        s_gpu = calibrate(g, [{"input": x2}], method="max")
+        s_cpu = calibrate(g, [{"input": x2}], method="max", device="cpu")
+        if sorted(s_gpu) != sorted(s_cpu):
+            raise AssertionError("card and CPU calibrate different edges")
+        cal_err = max(abs(s_gpu[e] - s_cpu[e]) / s_cpu[e] for e in s_cpu)
+        gq = quantize_graph(g, s_cpu)
+        order = topological_order(gq)
+        edges = [e for n in order for e in n.outputs]
+        i8 = [n.outputs[0] for n in order
+              if n.op in ("conv2d_int8", "pool2d_int8")
+              or n.attr("quant_out_scale") is not None]
+        out = gq.outputs[0]
+
+        reset_counts()
+        y_gpu = ak.Net(gq, "bf16", tap_edges=edges).prediction({"input": x2})
+        torch.cuda.synchronize()
+        if read_counts()["depthwise3x3_int8"] != MOBILENETS[name][0]:
+            raise AssertionError(f"{name}: the card's b2 forward did not run "
+                                 f"depthwise3x3_int8")
+        y_cpu = ak.Net(gq, "bf16", device="cpu", tap_edges=edges).prediction(
+            {"input": x2})
+        i8 = [e for e in i8 if y_cpu[e].dtype == torch.int8]
+        lsb = max(int((y_gpu[e].cpu().int() - y_cpu[e].int()).abs().max())
+                  for e in i8)
+        n_diff = sum(int((y_gpu[e].cpu() != y_cpu[e]).sum()) for e in i8)
+        stem_diff = int((y_gpu[i8[0]].cpu() != y_cpu[i8[0]]).sum())
+        sg, sc = y_gpu[out].float().cpu(), y_cpu[out].float()
+        soft_err = float((sg - sc).abs().max())
+        top2 = torch.topk(sc, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        # decided: the top-2 gap exceeds what the tolerance lets both move
+        decided = gap > 2 * (SOFT_ATOL + SOFT_RTOL * top2[:, 0])
+        same = sg.argmax(-1) == sc.argmax(-1)
+
+        kernel_lsb, other_lsb, float_rel = _node_by_node(gq, x2, y_cpu)
+
+        stem_out = i8[0]  # the fp32 stem's requantized output
+        cut = next(i for i, n in enumerate(order) if stem_out in n.inputs)
+        tail = [e for n in order[cut:] for e in n.outputs]
+        feed = {stem_out: y_cpu[stem_out]}
+        t_gpu = ak.Net(gq, "bf16", start_from=order[cut].name,
+                       tap_edges=tail).prediction(feed)
+        t_cpu = ak.Net(gq, "bf16", device="cpu", start_from=order[cut].name,
+                       tap_edges=tail).prediction(feed)
+        tail_lsb = max(int((t_gpu[e].cpu().int() - t_cpu[e].int()).abs().max())
+                       for e in i8[1:])
+        tg, tc = t_gpu[out].float().cpu(), t_cpu[out].float()
+        tail_err = float((tg - tc).abs().max())
+
+        log(f"[cpu/gpu {name}] b2: calibrate scales max rel diff {cal_err:.3g}"
+            f" over {len(s_cpu)} edges")
+        log(f"[cpu/gpu {name}] node by node on the CPU's inputs: int8 kernel "
+            f"outputs max diff {kernel_lsb} LSB, other int8 outputs (the fp32 "
+            f"stem's requant) {other_lsb} LSB, float outputs max rel diff "
+            f"{float_rel:.3g}")
+        log(f"[cpu/gpu {name}] from the CPU's int8 stem output: int8 edges "
+            f"max diff {tail_lsb} LSB, softmax max abs diff {tail_err:.3g}")
+        log(f"[cpu/gpu {name}] from the image: stem output {stem_diff} "
+            f"elements differ; int8 edges max diff {lsb} LSB ({n_diff} "
+            f"elements differ); softmax max abs diff {soft_err:.3g}; top-1 gpu "
+            f"{sg.argmax(-1).tolist()} cpu {sc.argmax(-1).tolist()}, top-2 gap "
+            f"{gap.tolist()}")
+        if cal_err > 1e-4:
+            raise AssertionError(f"{name}: card and CPU scales differ by "
+                                 f"{cal_err}")
+        if kernel_lsb or other_lsb > 1 or float_rel > 8e-3:
+            raise AssertionError(f"{name}: a node differs between the card "
+                                 f"and the CPU on the same inputs")
+        if tail_lsb:
+            raise AssertionError(f"{name}: int8 edges differ from the same "
+                                 f"stem output")
+        torch.testing.assert_close(tg, tc, rtol=SOFT_RTOL, atol=SOFT_ATOL)
+        if not bool(same[decided].all()):
+            raise AssertionError(f"{name}: top-1 differs where decided")
+        report.setdefault(name, {})["cpu_gpu"] = dict(
+            calibrate_max_rel=cal_err, node_kernel_max_lsb=kernel_lsb,
+            node_other_max_lsb=other_lsb, node_float_max_rel=float_rel,
+            from_stem_int8_max_lsb=tail_lsb, from_stem_softmax_max_abs=tail_err,
+            from_image_stem_diff_elements=stem_diff, from_image_int8_max_lsb=lsb,
+            from_image_int8_diff_elements=n_diff,
+            from_image_softmax_max_abs=soft_err, top1_equal=same.tolist(),
+            top2_gap=gap.tolist())
+
+
+def mobilenet_phases(report, card):
+    """Phases 9-11.  Returns the kernel check rows and the depthwise
+    launches of one v1 and one v2 forward."""
+    t0 = time.perf_counter()
+    path_calls, dw_launches = {}, 0
+    for name in MOBILENETS:
+        counts, path_calls[name] = mobilenet_path(name, report, card)
+        dw_launches += counts["depthwise3x3_int8"]
+    log(f"[time] phase 9 took {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    results = dw_kernels(report, path_calls)
+    log(f"[time] phase 10 took {time.perf_counter() - t0:.0f} s")
+    t0 = time.perf_counter()
+    mobilenet_cpu_gpu(report)
+    log(f"[time] phase 11 took {time.perf_counter() - t0:.0f} s")
+    return results, dw_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -869,6 +1290,12 @@ def main() -> int:
                  matmul_w4=f"{NEW} w4 decode steps")
     results += llm_kernels(report, cfg)
     llm_cpu_gpu(report, cfg)
+    log(f"[time] LLM phases done at {time.perf_counter() - t_start:.0f} s")
+
+    # ----------------------------------------------------- 9-11. MobileNet
+    dw_results, counts["depthwise3x3_int8"] = mobilenet_phases(report, card)
+    results += dw_results
+    units["depthwise3x3_int8"] = "one MobileNet v1 and one v2 forward"
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)

@@ -17,9 +17,12 @@ import jax.numpy as jnp
 import torch
 
 from anakin_tpu.kernels.conv_int8 import conv3x3_int8 as jax_conv3x3_int8
+from anakin_tpu.kernels.depthwise_int8 import \
+    depthwise3x3_int8 as jax_depthwise3x3_int8
 from anakin_tpu.kernels.matmul_int8 import matmul_int8 as jax_matmul_int8
 from anakin_tpu_torch.kernels import _build
 from anakin_tpu_torch.kernels.conv_int8 import conv3x3_int8
+from anakin_tpu_torch.kernels.depthwise_int8 import depthwise3x3_int8
 from anakin_tpu_torch.kernels.matmul_int8 import matmul_int8
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,6 +134,66 @@ def test_conv3x3_int8_plain_matches_pallas(rng, N, H, W, C, O, act, bias,
     _compare(got, want)
 
 
+_DW_SPECS = [  # the JAX package's own depthwise cases, tests/test_kernels.py
+    dict(shape=(2, 16, 16, 128), act="relu6", out_scale=0.07, bias=True),
+    dict(shape=(1, 14, 14, 256), act=None, out_scale=None, bias=False),
+    dict(shape=(2, 12, 20, 64), act="relu", out_scale=0.11, bias=True),
+    # ragged C, leaky_relu, bf16 out
+    dict(shape=(2, 10, 6, 40), act="leaky_relu", out_scale=0.09, bias=True),
+    dict(shape=(1, 8, 12, 24), act="leaky_relu", out_scale=None, bias=True,
+         out_dtype="bfloat16"),
+    dict(shape=(2, 6, 8, 48), act="relu6", out_scale=None, bias=True,
+         out_dtype="bfloat16"),
+]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("spec", _DW_SPECS)
+def test_depthwise3x3_int8_plain_matches_pallas(rng, stride, spec):
+    """int8 outputs within 1 LSB with at least 99.9% equal (XLA on the CPU
+    may contract the JAX epilogue into an FMA, which can move a value
+    across a rounding edge); float outputs as `_compare`."""
+    N, H, W, C = spec["shape"]
+    out_dtype = spec.get("out_dtype", "float32")
+    x = rng.integers(-127, 128, (N, H, W, C)).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, 1, C)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.01, C).astype(np.float32)
+    bias = rng.normal(0, 0.5, C).astype(np.float32) if spec["bias"] else None
+    kw = dict(stride=stride, in_scale=0.05, activation=spec["act"],
+              act_alpha=0.1, out_scale=spec["out_scale"])
+    want = jax_depthwise3x3_int8(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(ws),
+        None if bias is None else jnp.asarray(bias),
+        out_dtype=jnp.dtype(out_dtype), interpret=True, **kw)
+    got = depthwise3x3_int8(_to_torch(x), _to_torch(w), _to_torch(ws),
+                            _to_torch(bias), out_dtype=_TORCH_DTYPES[out_dtype],
+                            **kw)
+    assert tuple(got.shape) == tuple(want.shape)
+    if spec["out_scale"] is not None:
+        assert got.dtype == torch.int8
+        d = np.abs(got.numpy().astype(np.int32) - np.asarray(want, np.int32))
+        assert d.max() <= 1 and (d == 0).mean() >= 0.999
+    else:
+        _compare(got, want)
+
+
+@pytest.mark.parametrize("act", ["sigmoid", "tanh"])
+def test_depthwise3x3_int8_refuses_transcendental_epilogue(act):
+    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
+    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        depthwise3x3_int8(x, w, torch.ones(8), in_scale=1.0, activation=act)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 4, 8), (1, 4, 7, 8)])
+def test_depthwise3x3_int8_refuses_odd_size_at_stride_2(shape):
+    x = torch.zeros(shape, dtype=torch.int8)
+    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="even"):
+        depthwise3x3_int8(x, w, torch.ones(8), stride=2, in_scale=1.0)
+    assert depthwise3x3_int8(x, w, torch.ones(8), in_scale=1.0).shape == shape
+
+
 def test_matmul_int8_exact_at_large_accumulators():
     """|acc| above 2**24 (K = 9*512, all operands at the int8 extreme):
     the accumulation must be exact before the float epilogue."""
@@ -150,16 +213,38 @@ def test_conv3x3_int8_refuses_transcendental_epilogue(rng):
         conv3x3_int8(x, w, torch.ones(8), in_scale=1.0, activation="sigmoid")
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device that is neither CPU, CUDA nor
+    meta, and refuses every operation."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a tensor of another device")
+
+
 @pytest.mark.parametrize("fn,shapes", [
     (matmul_int8, ((4, 8), (8, 4))),
     (conv3x3_int8, ((1, 4, 4, 8), (3, 3, 8, 4))),
+    (depthwise3x3_int8, ((1, 4, 4, 4), (3, 3, 1, 4))),
 ])
 def test_wrappers_take_no_other_device(fn, shapes):
     """Off the CPU a wrapper launches its kernel or raises: a tensor on a
-    device that is neither CPU nor CUDA gets no plain-version fallback."""
+    device that is neither CPU nor CUDA gets no plain-version fallback.
+    A meta tensor (shape inference) goes through the plain version and
+    gives a meta tensor of the output's shape, with no launch counted."""
+    a, b = (_Elsewhere(s, torch.int8) for s in shapes)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        fn(a, b, _Elsewhere((4,), torch.float32), in_scale=1.0)
     a, b = (torch.zeros(s, dtype=torch.int8, device="meta") for s in shapes)
-    with pytest.raises(ValueError):
-        fn(a, b, torch.ones(4, device="meta"), in_scale=1.0)
+    launches = fn.launches
+    y = fn(a, b, torch.ones(4, device="meta"), in_scale=1.0, out_scale=0.5)
+    assert y.device.type == "meta" and y.dtype == torch.int8
+    assert tuple(y.shape) == shapes[0][:-1] + (4,) and fn.launches == launches
 
 
 def test_kernels_build_lazily_and_name_their_sources():

@@ -45,6 +45,8 @@ from anakin_tpu_torch.quant import weight_only_quantize
 from anakin_tpu_torch.runtime.generate import GenerationSession
 from anakin_tpu_torch.runtime.net import build_forward
 
+from test_torch_kernels import _Elsewhere
+
 CFG = dict(vocab=512, embed=256, heads=8, kv_heads=4, layers=2, max_seq=256)
 BF16_ULP = 2.0 ** -7
 
@@ -230,15 +232,24 @@ def test_matmul_w4_plain_matches_pallas(rng, dtype, M, K, N, G):
 
 
 def test_matmul_w4_refuses_v2_and_other_devices():
+    """v2 raises; a device that is neither CPU nor CUDA raises in both LLM
+    wrappers; a meta tensor (shape inference) gets a meta result."""
     x = torch.zeros((2, 128))
     packed = torch.zeros((64, 8), dtype=torch.int8)
     scales = torch.ones((1, 8))
     with pytest.raises(NotImplementedError):
         matmul_w4(x, packed, scales, group=128, variant="v2")
-    with pytest.raises(ValueError):
-        matmul_w4(x.to("meta"), packed.to("meta"), scales.to("meta"), group=128)
-    with pytest.raises(ValueError):
-        flash_attention(*(torch.zeros((1, 2, 4, 32), device="meta"),) * 3)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        matmul_w4(_Elsewhere((2, 128), torch.float32),
+                  _Elsewhere((64, 8), torch.int8),
+                  _Elsewhere((1, 8), torch.float32), group=128)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        flash_attention(*(_Elsewhere((1, 2, 4, 32), torch.float32),) * 3)
+    y = matmul_w4(x.to("meta"), packed.to("meta"), scales.to("meta"), group=128)
+    assert y.device.type == "meta" and tuple(y.shape) == (2, 8)
+    q = torch.zeros((1, 2, 4, 32), device="meta")
+    y = flash_attention(q, q, q, causal=True)
+    assert y.device.type == "meta" and tuple(y.shape) == (1, 2, 4, 32)
 
 
 # ------------------------------------------------------------- ops
