@@ -37,6 +37,21 @@
 // thread per column and 8 rows per block.  Against the plain version the
 // result differs only by the order of the float32 sums.
 //
+// Variant v2 (V2 = true) replaces the same TPU kernel's variant v2
+// (`_make_kernel_v2`), which dequantizes in x's dtype T:
+//
+//   s    = T(scale)
+//   w_lo = T((T(lo_u ^ 8) - 8) * s)              lo_u = p & 0xF
+//   w_hi = T((T(p) - T(lo_u)) * (s * 0.0625))
+//   out  = x_lo @ w_lo + x_hi @ w_hi, summed in float32
+//
+// The Pallas kernel splits x into per-group low and high halves outside the
+// kernel because Mosaic had no int8 subtraction; here x is indexed per half
+// inside the kernel, as v1 does, and only the weight dequant differs.  Every
+// product above is exact in float32 before its one rounding to T, so for
+// float32 x, or scales already in bf16, v2 equals v1 bit for bit; with
+// float32 scales and bf16 x it rounds the scale to bf16 first.
+//
 // This first version uses no cp.async, TMA or wgmma; those, and a
 // persistent schedule, are the next step.
 #include <cuda_bf16.h>
@@ -72,6 +87,21 @@ __device__ __forceinline__ int wt_off(int n, int p) {
 __device__ __forceinline__ int lo4(int p) { return ((p & 0xF) ^ 8) - 8; }
 __device__ __forceinline__ int hi4(int p) { return p >> 4; }  // p: sign-extended byte
 
+// The dequantized weights of byte p (sign-extended) under group scale s,
+// before the rounding to x's dtype.  v2's s is already in x's dtype.
+template <bool V2>
+__device__ __forceinline__ float w_lo(int p, float s) {
+  if (V2) return __fmul_rn(static_cast<float>((p & 0xF) ^ 8) - 8.0f, s);
+  return __fmul_rn(static_cast<float>(lo4(p)), s);
+}
+template <bool V2>
+__device__ __forceinline__ float w_hi(int p, float s) {
+  if (V2)
+    return __fmul_rn(static_cast<float>(p) - static_cast<float>(p & 0xF),
+                     __fmul_rn(s, 0.0625f));
+  return __fmul_rn(static_cast<float>(hi4(p)), s);
+}
+
 // groups [g0, g1) of split s
 __device__ __forceinline__ void split_range(const Args& a, int s, int& g0,
                                             int& g1) {
@@ -99,7 +129,8 @@ __device__ __forceinline__ int byte_of(uint2 v, int j) {
 }
 
 // ---------------------------------------------------------------- bf16
-template <int WM>  // warps along M: 1 (16-row blocks) or 4 (64-row blocks)
+// WM: warps along M, 1 (16-row blocks) or 4 (64-row blocks)
+template <int WM, bool V2>
 __global__ void __launch_bounds__(THREADS) w4_bf16(Args a) {
   constexpr int WN = 8 / WM;          // warps along N
   constexpr int NT = BN / WN / 8;     // n-tiles of 8 per warp
@@ -140,8 +171,10 @@ __global__ void __launch_bounds__(THREADS) w4_bf16(Args a) {
     const int grp = g0 + c / cpg;
     if (grp != sc_group) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
         sc[j] = n0 + cc + j < a.N ? __ldg(a.scales + (size_t)grp * a.N + n0 + cc + j) : 0.f;
+        if (V2) sc[j] = __bfloat162float(__float2bfloat16_rn(sc[j]));
+      }
       sc_group = grp;
     }
     // unpack, scale in float32, round to bf16, store as [n][k] pairs
@@ -149,11 +182,9 @@ __global__ void __launch_bounds__(THREADS) w4_bf16(Args a) {
     for (int j = 0; j < 8; ++j) {
       const int b0 = byte_of(p0, j), b1 = byte_of(p1, j);
       *reinterpret_cast<uint32_t*>(wt + wt_off(cc + j, rp)) =
-          ak::pack_f32_bf16(static_cast<float>(lo4(b0)) * sc[j],
-                            static_cast<float>(lo4(b1)) * sc[j]);
+          ak::pack_f32_bf16(w_lo<V2>(b0, sc[j]), w_lo<V2>(b1, sc[j]));
       *reinterpret_cast<uint32_t*>(wt + wt_off(cc + j, CH / 2 + rp)) =
-          ak::pack_f32_bf16(static_cast<float>(hi4(b0)) * sc[j],
-                            static_cast<float>(hi4(b1)) * sc[j]);
+          ak::pack_f32_bf16(w_hi<V2>(b0, sc[j]), w_hi<V2>(b1, sc[j]));
     }
     __syncthreads();
     if (c + 1 < c_end) {  // next chunk's bytes in flight during the mma
@@ -201,6 +232,7 @@ __global__ void __launch_bounds__(THREADS) w4_bf16(Args a) {
 // ---------------------------------------------------------------- float32
 constexpr int FM = 8, FTHREADS = 128;
 
+template <bool V2>
 __global__ void __launch_bounds__(FTHREADS) w4_f32(Args a) {
   __shared__ float xs[FM][2 * CH];  // x columns of this chunk: low, high rows
   const int n = blockIdx.x * FTHREADS + threadIdx.x;
@@ -225,8 +257,8 @@ __global__ void __launch_bounds__(FTHREADS) w4_f32(Args a) {
       if (n < a.N) {
         for (int r = 0; r < CH; ++r) {
           const int p = a.packed[(size_t)(grp * half + c + r) * a.N + n];
-          const float wl = static_cast<float>(lo4(p)) * s;
-          const float wh = static_cast<float>(hi4(p)) * s;
+          const float wl = w_lo<V2>(p, s);
+          const float wh = w_hi<V2>(p, s);
 #pragma unroll
           for (int m = 0; m < FM; ++m)
             acc[m] = fmaf(xs[m][CH + r], wh, fmaf(xs[m][r], wl, acc[m]));
@@ -251,6 +283,22 @@ __global__ void sum_splits(const float* ws, float* out, int splits, size_t mn) {
   }
 }
 
+template <bool V2>
+void launch(const Args& a, int bf16, cudaStream_t st) {
+  if (bf16) {
+    if (a.M <= 16) {
+      dim3 grid((a.N + BN - 1) / BN, (a.M + 15) / 16, a.splits);
+      w4_bf16<1, V2><<<grid, THREADS, 0, st>>>(a);
+    } else {
+      dim3 grid((a.N + BN - 1) / BN, (a.M + 63) / 64, a.splits);
+      w4_bf16<4, V2><<<grid, THREADS, 0, st>>>(a);
+    }
+  } else {
+    dim3 grid((a.N + FTHREADS - 1) / FTHREADS, (a.M + FM - 1) / FM, a.splits);
+    w4_f32<V2><<<grid, FTHREADS, 0, st>>>(a);
+  }
+}
+
 }  // namespace
 
 // Splits of K the launch will use (the caller sizes the workspace from it).
@@ -263,9 +311,10 @@ extern "C" int ak_matmul_w4_splits(int M, int N, int K, int G, int bf16) {
   return (int)(s < 1 ? 1 : (s > ng ? ng : s));
 }
 
+// v2: 0 for variant v1, 1 for variant v2.
 extern "C" int ak_matmul_w4(const void* x, const void* packed, const void* scales,
-                            void* out, void* workspace, int bf16, int M, int N,
-                            int K, int G, int splits, void* stream) {
+                            void* out, void* workspace, int bf16, int v2, int M,
+                            int N, int K, int G, int splits, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K <= 0 || G <= 0 || K % G != 0 || (G / 2) % CH != 0 || splits < 1 ||
       (splits > 1 && workspace == nullptr))
@@ -274,18 +323,10 @@ extern "C" int ak_matmul_w4(const void* x, const void* packed, const void* scale
   Args a{x, static_cast<const int8_t*>(packed), static_cast<const float*>(scales),
          static_cast<float*>(splits > 1 ? workspace : out), M, N, K, G, splits,
          (N % 8 == 0 && reinterpret_cast<uintptr_t>(packed) % 8 == 0) ? 1 : 0};
-  if (bf16) {
-    if (M <= 16) {
-      dim3 grid((N + BN - 1) / BN, (M + 15) / 16, splits);
-      w4_bf16<1><<<grid, THREADS, 0, st>>>(a);
-    } else {
-      dim3 grid((N + BN - 1) / BN, (M + 63) / 64, splits);
-      w4_bf16<4><<<grid, THREADS, 0, st>>>(a);
-    }
-  } else {
-    dim3 grid((N + FTHREADS - 1) / FTHREADS, (M + FM - 1) / FM, splits);
-    w4_f32<<<grid, FTHREADS, 0, st>>>(a);
-  }
+  if (v2)
+    launch<true>(a, bf16, st);
+  else
+    launch<false>(a, bf16, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)M * N;

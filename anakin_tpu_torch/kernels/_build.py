@@ -30,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "anakin_tpu_torch")
 SOURCES = ("matmul_int8", "conv3x3_int8", "flash_attention", "matmul_w4",
-           "depthwise3x3_int8")
+           "depthwise3x3_int8", "bottleneck_int8")
 
 
 def runs_plain(device, kernel: str) -> bool:

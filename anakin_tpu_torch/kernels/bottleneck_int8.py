@@ -1,0 +1,183 @@
+"""Fused int8 identity-shortcut bottleneck block: the port of
+`anakin_tpu/kernels/bottleneck_int8.py::bottleneck_int8`.
+
+    a = requant_a(relu(x @ wa * (in_scale * wsa) + ba))          1x1, C -> P
+    b = requant_b(relu(conv3x3(a, wb) * (a_scale * wsb) + bb))   3x3 s1 p1
+    y = relu(b @ wc * (b_scale * wsc) + bc + x * res_scale)      1x1, P -> C
+    out = requant_out(y) as int8 when `out_scale` is given, else y as
+          `out_dtype` (float32 or bfloat16)
+
+with requant_s(v) = clip(round(v * (1 / s)), -127, 127) as int8.  x is
+[N, H, W, C] int8, wa [C, P], wb [3, 3, P, P] (HWIO), wc [P, C] int8; the
+weight scales and biases are widened to float32, as the Pallas wrapper
+does.  Each bias may be given or not.
+
+The plain version is the composition of the port's plain GEMM and 3x3
+conv: exactly the Pallas kernel's arithmetic, step for step.  On a CUDA
+tensor `bottleneck_int8` launches the fused Hopper kernel in
+`csrc/bottleneck_int8.cu` (its header says what bounds it and what its
+design does about that), which equals the unfused chain `matmul_int8 ->
+conv3x3_int8 -> matmul_int8` bit for bit; on a CPU tensor it runs
+`bottleneck_int8_plain`.  The kernel takes C and P that are multiples of 64
+(ResNet's identity blocks: C = 4 P, P 64 ... 512).  Each call transposes
+the three weights on the card first, with a second, small kernel; one count
+in `bottleneck_int8.launches` covers both launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .conv_int8 import conv3x3_int8_plain
+from .matmul_int8 import _OUT_KINDS, matmul_int8_plain, scale_row
+
+__all__ = ["bottleneck_int8", "bottleneck_int8_plain", "identity_block"]
+
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: the shapes were refused
+
+
+def bottleneck_int8_plain(x, wa, wsa, wb, wsb, wc, wsc, ba=None, bb=None,
+                          bc=None, *, in_scale: float, a_scale: float,
+                          b_scale: float, res_scale: float,
+                          out_scale: Optional[float] = None,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """`bottleneck_int8` in plain PyTorch, on any device: the three plain
+    kernels in a row."""
+    N, H, W, C = x.shape
+    P = wa.shape[1]
+    rows = x.reshape(N * H * W, C)
+    a = matmul_int8_plain(rows, wa, wsa, ba, in_scale=in_scale,
+                          activation="relu", out_scale=a_scale)
+    b = conv3x3_int8_plain(a.reshape(N, H, W, P), wb, wsb, bb,
+                           in_scale=a_scale, activation="relu",
+                           out_scale=b_scale)
+    y = matmul_int8_plain(b.reshape(N * H * W, P), wc, wsc, bc, rows,
+                          in_scale=b_scale, activation="relu",
+                          out_scale=out_scale, out_dtype=out_dtype,
+                          residual_scale=res_scale)
+    return y.reshape(N, H, W, C)
+
+
+def _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype):
+    if any(t.dtype != torch.int8 for t in (x, wa, wb, wc)):
+        raise TypeError(f"bottleneck_int8 takes int8 x and weights, got "
+                        f"{x.dtype}, {wa.dtype}, {wb.dtype}, {wc.dtype}")
+    if x.dim() != 4 or wa.dim() != 2 or wa.shape[0] != x.shape[3]:
+        raise ValueError(f"bottleneck_int8 shapes x {tuple(x.shape)}, wa "
+                         f"{tuple(wa.shape)}")
+    C, P = wa.shape
+    if tuple(wb.shape) != (3, 3, P, P) or tuple(wc.shape) != (P, C):
+        raise ValueError(f"bottleneck_int8 needs wb [3, 3, {P}, {P}] and wc "
+                         f"[{P}, {C}], got {tuple(wb.shape)}, {tuple(wc.shape)}")
+    for name, v, n in (("wsa", wsa, P), ("wsb", wsb, P), ("wsc", wsc, C),
+                       ("ba", ba, P), ("bb", bb, P), ("bc", bc, C)):
+        if v is not None and tuple(v.shape) != (n,):
+            raise ValueError(f"bottleneck_int8: {name} must be [{n}], got "
+                             f"{tuple(v.shape)}")
+    if any(t is not None and t.device != x.device
+           for t in (wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)):
+        raise ValueError("bottleneck_int8 operands on different devices")
+    if out_scale is None and out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype} not supported")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bottleneck_int8")
+    fn = lib.ak_bottleneck_int8
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, on a 16-byte boundary (the kernels' 16-byte copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bottleneck_int8(x: torch.Tensor, wa: torch.Tensor, wsa: torch.Tensor,
+                    wb: torch.Tensor, wsb: torch.Tensor, wc: torch.Tensor,
+                    wsc: torch.Tensor, ba: Optional[torch.Tensor] = None,
+                    bb: Optional[torch.Tensor] = None,
+                    bc: Optional[torch.Tensor] = None, *, in_scale: float,
+                    a_scale: float, b_scale: float, res_scale: float,
+                    out_scale: Optional[float] = None,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """The fused identity bottleneck; returns [N, H, W, C] int8 when
+    `out_scale` is given, else `out_dtype`."""
+    _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype)
+    kw = dict(in_scale=in_scale, a_scale=a_scale, b_scale=b_scale,
+              res_scale=res_scale, out_scale=out_scale, out_dtype=out_dtype)
+    if _build.runs_plain(x.device, "bottleneck_int8"):
+        return bottleneck_int8_plain(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc,
+                                     **kw)
+    N, H, W, C = x.shape
+    P = wa.shape[1]
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        x_, wa_, wb_, wc_ = (_aligned(t) for t in (x, wa, wb, wc))
+        sa, sb, sc = (scale_row(s, v).contiguous() for s, v in
+                      ((wsa, in_scale), (wsb, a_scale), (wsc, b_scale)))
+        biases = [None if v is None else _aligned(v.to(torch.float32))
+                  for v in (ba, bb, bc)]
+        odt = torch.int8 if out_scale is not None else out_dtype
+        out = torch.empty((N, H, W, C), dtype=odt, device=x.device)
+        ws = torch.empty(2 * C * P + 9 * P * P, dtype=torch.int8,
+                         device=x.device)  # the weights, transposed
+
+        def ptr(t):
+            return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ak_bottleneck_int8(
+            ptr(x_), ptr(wa_), ptr(sa), ptr(biases[0]), ptr(wb_), ptr(sb),
+            ptr(biases[1]), ptr(wc_), ptr(sc), ptr(biases[2]), ptr(out),
+            ptr(ws), _OUT_KINDS[odt], N, H, W, C, P, 1.0 / float(a_scale),
+            1.0 / float(b_scale), float(res_scale),
+            0.0 if out_scale is None else 1.0 / float(out_scale),
+            ctypes.c_void_p(stream))
+    if rc == _INVALID_VALUE:
+        raise ValueError(f"the CUDA bottleneck_int8 takes C and P that are "
+                         f"multiples of 64 and one row of the image in shared "
+                         f"memory, got W {W}, C {C}, P {P}")
+    if rc != 0:
+        raise RuntimeError(f"bottleneck_int8 kernel launch failed: CUDA error "
+                           f"{rc}")
+    bottleneck_int8.launches += 1
+    return out
+
+
+bottleneck_int8.launches = 0
+
+
+def identity_block(block, params, x: torch.Tensor) -> torch.Tensor:
+    """`bottleneck_int8` on one (A, B, C) node triple of
+    `models.resnet.identity_bottlenecks`, with the graph's params as a `Net`
+    holds them (`Net.params`: on its device, float params in its compute
+    dtype) and the block's int8 input x.  Gives what the net gives on C's
+    output edge."""
+    a, b, c = block
+
+    def weights(node, rows, cols):
+        ws = [params[e] for e in node.inputs[1:3]]
+        bias = params[node.inputs[3]] if node.attr("has_bias") else None
+        return ws[0].reshape(rows, cols), ws[1], bias
+
+    C, P = x.shape[3], params[a.inputs[1]].shape[3]
+    wa, wsa, ba = weights(a, C, P)
+    wb, wsb, bb = params[b.inputs[1]], params[b.inputs[2]], (
+        params[b.inputs[3]] if b.attr("has_bias") else None)
+    wc, wsc, bc = weights(c, P, C)
+    out_scale = c.attr("out_scale")
+    return bottleneck_int8(
+        x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc,
+        in_scale=float(a.attr("in_scale")), a_scale=float(a.attr("out_scale")),
+        b_scale=float(b.attr("out_scale")),
+        res_scale=float(c.attr("residual_scale")),
+        out_scale=None if out_scale is None else float(out_scale),
+        out_dtype=getattr(torch, c.attr("out_dtype", "float32")))

@@ -1,8 +1,9 @@
 """Weight-only int4 matmul with group-wise scales: the port of
-`anakin_tpu/kernels/matmul_w4.py::matmul_w4`, variant v1.
+`anakin_tpu/kernels/matmul_w4.py::matmul_w4`, variants v1 and v2.
 
-    W[k, n] = cast_to_x_dtype(float(int4[k, n]) * scales[k // G, n])
-    out     = x @ W as [M, N] float32
+    v1: W[k, n] = cast_to_x_dtype(float(int4[k, n]) * scales[k // G, n])
+    v2: W[k, n] = cast_to_x_dtype(float(int4[k, n]) * cast_to_x_dtype(scales))
+    out = x @ W as [M, N] float32
 
 x [M, K] bf16 or float32, packed [K/2, N] int8 and scales [K/G, N] float32
 in the layout of `quant.quantize._w4_group_quantize`: in each group of G
@@ -10,10 +11,18 @@ rows, packed row r holds row r in its low nibble and row r + G/2 in its
 high nibble.  The epilogue (bias, residual, activation) stays with the
 caller, as in the JAX package.
 
+v2 is the Pallas kernel's second unpack (`_make_kernel_v2`), written in
+x's dtype: `unpack_w4_v2` repeats its steps.  Every product there is exact
+before its one rounding, so v2 differs from v1 only where float32 scales
+meet bf16 x: v2 rounds the scale to bf16 before the product.  The JAX
+package runs v1 for any variant name but "v2"; the port raises on an
+unknown name.
+
 On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
-`csrc/matmul_w4.cu`; on a CPU tensor it runs `matmul_w4_plain`.  The two
-agree up to the order of the float32 sums.  Variant "v2" (x pre-split into
-low and high halves) is not ported yet and raises on every device.
+`csrc/matmul_w4.cu` (v2 is its `V2` instantiation; `matmul_w4.launches`
+counts v1's launches, `matmul_w4.launches_v2` v2's); on a CPU tensor it
+runs `matmul_w4_plain`.  The two agree up to the order of the float32
+sums.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ import torch
 
 from . import _build
 
-__all__ = ["matmul_w4", "matmul_w4_plain", "unpack_w4"]
+__all__ = ["matmul_w4", "matmul_w4_plain", "unpack_w4", "unpack_w4_v2"]
+
+VARIANTS = ("v1", "v2")
 
 
 def unpack_w4(packed: torch.Tensor, scales: torch.Tensor, group: int,
@@ -43,18 +54,36 @@ def unpack_w4(packed: torch.Tensor, scales: torch.Tensor, group: int,
     return w.reshape(K, N).to(dtype)
 
 
+def unpack_w4_v2(packed: torch.Tensor, scales: torch.Tensor, group: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """v2's dequantized weight [K, N], each step in `dtype` as the Pallas
+    kernel takes it: s = dtype(scale); low nibble (lo_u ^ 8) - 8, times s;
+    high nibble p - lo_u (16 times its value), times s / 16."""
+    K2, N = packed.shape
+    ng = 2 * K2 // group
+    lo_u = packed & 0xF
+    s = scales.to(dtype)[:, None, :]
+    lo = (lo_u ^ 8).to(dtype) - 8.0
+    hi16 = packed.to(dtype) - lo_u.to(dtype)
+    w_lo = lo.reshape(ng, group // 2, N) * s
+    w_hi = hi16.reshape(ng, group // 2, N) * (s * 0.0625)
+    return torch.cat([w_lo, w_hi], dim=1).reshape(2 * K2, N)
+
+
 def matmul_w4_plain(x: torch.Tensor, packed: torch.Tensor,
-                    scales: torch.Tensor, *, group: int) -> torch.Tensor:
+                    scales: torch.Tensor, *, group: int,
+                    variant: str = "v1") -> torch.Tensor:
     """`matmul_w4` in plain PyTorch, on any device: dequantize, then one
     float32 product (bf16 operands are exact in float32)."""
-    w = unpack_w4(packed, scales, group, x.dtype)
+    unpack = unpack_w4_v2 if variant == "v2" else unpack_w4
+    w = unpack(packed, scales, group, x.dtype)
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 def _check(x, packed, scales, group, variant):
-    if variant != "v1":
-        raise NotImplementedError(f"matmul_w4 variant {variant!r} is not ported; "
-                                  "only 'v1' is")
+    if variant not in VARIANTS:
+        raise ValueError(f"matmul_w4 variant {variant!r}: the variants are "
+                         f"{VARIANTS}")
     if x.dim() != 2 or packed.dim() != 2 or x.shape[1] != 2 * packed.shape[0]:
         raise ValueError(f"matmul_w4 shapes x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)}")
@@ -73,7 +102,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul_w4")
     lib.ak_matmul_w4_splits.argtypes = [ctypes.c_int] * 5
     lib.ak_matmul_w4_splits.restype = ctypes.c_int
-    lib.ak_matmul_w4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    lib.ak_matmul_w4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.ak_matmul_w4.restype = ctypes.c_int
     return lib
@@ -81,10 +110,11 @@ def _lib() -> ctypes.CDLL:
 
 def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
               group: int, variant: str = "v1") -> torch.Tensor:
-    """x [M, K] @ dequant(packed [K/2, N], scales [K/G, N]) -> [M, N] float32."""
+    """x [M, K] @ dequant(packed [K/2, N], scales [K/G, N]) -> [M, N]
+    float32, with the dequant of `variant` ("v1" or "v2")."""
     _check(x, packed, scales, group, variant)
     if _build.runs_plain(x.device, "matmul_w4"):
-        return matmul_w4_plain(x, packed, scales, group=group)
+        return matmul_w4_plain(x, packed, scales, group=group, variant=variant)
     if (group // 2) % 32:
         raise ValueError(f"the CUDA matmul_w4 takes groups that are multiples "
                          f"of 64, got {group}")
@@ -106,12 +136,17 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
         rc = lib.ak_matmul_w4(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
             ctypes.c_void_p(scales.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(None if ws is None else ws.data_ptr()), bf16, M, N,
-            K, group, splits, ctypes.c_void_p(stream))
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()), bf16,
+            int(variant == "v2"), M, N, K, group, splits,
+            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"matmul_w4 kernel launch failed: CUDA error {rc}")
-    matmul_w4.launches += 1
+    if variant == "v2":
+        matmul_w4.launches_v2 += 1
+    else:
+        matmul_w4.launches += 1
     return out
 
 
 matmul_w4.launches = 0
+matmul_w4.launches_v2 = 0

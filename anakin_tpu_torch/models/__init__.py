@@ -1,5 +1,6 @@
 from .mobilenet import build_mobilenet_v1, build_mobilenet_v2  # noqa: F401
-from .resnet import build_resnet, build_resnet50, build_resnet101  # noqa: F401
+from .resnet import (build_resnet, build_resnet50,  # noqa: F401
+                     build_resnet101, identity_bottlenecks)
 from .transformer import (  # noqa: F401
     TransformerConfig,
     build_transformer_decode_step,

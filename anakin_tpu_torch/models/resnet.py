@@ -12,11 +12,14 @@ tests compare executor variants, not ImageNet accuracy.
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 
-from ..graph.ir import Graph, GraphBuilder
+from ..graph.ir import Graph, GraphBuilder, Node
 
-__all__ = ["build_resnet50", "build_resnet101", "build_resnet"]
+__all__ = ["build_resnet50", "build_resnet101", "build_resnet",
+           "identity_bottlenecks"]
 
 
 class _P:
@@ -108,3 +111,48 @@ def build_resnet50(batch: int = 1, image_size: int = 224, **kw) -> Graph:
 
 def build_resnet101(batch: int = 1, image_size: int = 224, **kw) -> Graph:
     return build_resnet((3, 4, 23, 3), batch, image_size, name="resnet101", **kw)
+
+
+def identity_bottlenecks(graph: Graph) -> List[Tuple[Node, Node, Node]]:
+    """The identity-shortcut bottleneck blocks of a quantized graph, as
+    (A, B, C) node triples in graph order: A a 1x1 s1 int8 conv with relu
+    and an int8 output whose only consumer is B; B a 3x3 s1 p1 int8 conv
+    with relu and an int8 output whose only consumer is C; C a 1x1 s1 int8
+    conv with relu whose residual is A's input at A's input scale.  These
+    are the blocks `kernels.bottleneck_int8` computes in one launch (2, 3,
+    5 and 2 over ResNet-50's four stages).  Nothing routes to it: the
+    executor runs the three nodes."""
+    producers, consumers = graph.producers(), graph.consumers()
+
+    def conv(node, k, pad, residual):
+        w = graph.params.get(node.inputs[1]) if len(node.inputs) > 1 else None
+        p = node.attr("padding", (0, 0))
+        return (node.op == "conv2d_int8" and w is not None and w.ndim == 4
+                and w.shape[:2] == (k, k) and not isinstance(p, str)
+                and tuple(p) == (pad, pad)
+                and tuple(node.attr("strides", (1, 1))) == (1, 1)
+                and tuple(node.attr("dilation", (1, 1))) == (1, 1)
+                and int(node.attr("groups", 1)) == 1
+                and node.attr("activation") == "relu"
+                and bool(node.attr("has_residual")) == residual)
+
+    def only_into(node, nxt):
+        return ([n.name for n in consumers.get(node.outputs[0], [])]
+                == [nxt.name] and node.attr("out_scale") is not None
+                and node.attr("out_scale") == nxt.attr("in_scale"))
+
+    blocks = []
+    for c in graph.nodes.values():
+        if not conv(c, 1, 0, True):
+            continue
+        b = producers.get(c.inputs[0])
+        if b is None or not conv(b, 3, 1, False) or not only_into(b, c):
+            continue
+        a = producers.get(b.inputs[0])
+        if a is None or not conv(a, 1, 0, False) or not only_into(a, b):
+            continue
+        if (c.inputs[-1] == a.inputs[0]
+                and c.attr("residual_scale") is not None
+                and c.attr("residual_scale") == a.attr("in_scale")):
+            blocks.append((a, b, c))
+    return blocks

@@ -22,10 +22,12 @@ On a CPU tensor the kernels run their plain versions.
 The weight-only ops keep activations in float: `dense_w8` (int8 weights,
 per-output-channel scale after the product) is a plain float32 matmul, as
 the JAX package leaves it to XLA; `dense_w4` (nibble-packed int4 weights,
-group-wise scales) always goes through `matmul_w4`, whatever `impl` says.
-Both JAX routes of `dense_w4` (Pallas and XLA) compute the same function:
-the float32 scale times the int4 value, rounded to the activation dtype,
-then a float32-accumulated product.
+group-wise scales) always goes through `matmul_w4`.  It routes as the JAX
+package does: `variant="v2"` on an `impl="pallas"` node runs v2, and every
+other node v1, since the JAX package reads `variant` on its Pallas route
+only and its XLA route computes v1's function (the float32 scale times the
+int4 value, rounded to the activation dtype, then a float32-accumulated
+product; v2 rounds the scale to the activation dtype first).
 """
 
 from __future__ import annotations
@@ -213,12 +215,13 @@ def dense_w8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
 @register("dense_w4")
 def dense_w4(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Weight-only int4 fully-connected on `matmul_w4` (attr `w4_group`;
-    attr `variant` "v1", the default, is the only one ported), then the
-    epilogue in float32."""
+    v2 for `impl="pallas"` with `variant="v2"`, else v1), then the epilogue
+    in float32."""
     x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
+    v2 = node.attr("impl") == "pallas" and node.attr("variant") == "v2"
     y = matmul_w4(xf, w_q, w_scale.to(torch.float32),
                   group=int(node.attr("w4_group")),
-                  variant=str(node.attr("variant", "v1")))
+                  variant="v2" if v2 else "v1")
     y = _epilogue(node, y, bias, residual)
     return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
 

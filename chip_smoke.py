@@ -11,7 +11,10 @@ configuration, random weights from seed 0, built once for both LLM paths),
 and MobileNet v1/v2 int8 inference at 224 px and batch 128 (the JAX
 package's suite configuration: random weights from seed 0, scales from
 `calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
-net).  Phases:
+net); then, on the same LLM weights and ResNet net, the distinct-position
+w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
+through the fused bottleneck_int8.  About 200 s on an H100, nvcc included.
+Phases:
 
   1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
               per source, all at once) and print what ptxas says;
@@ -72,6 +75,39 @@ net).  Phases:
               that tolerance: the fp32 stem conv may round an element the
               other way on the two devices, and random weights amplify it).
 
+ 12. llm B v2 the distinct-position w4 decode ladder (`tools/exp_w4_r4.py bench
+              --weights w4 --pos distinct --variant v2` of the JAX package):
+              the int8-KV decode graph with per-slot positions and
+              `cache_update="rows"`, `weight_only_quantize(bits=4)`, every
+              `dense_w4` set to `impl="pallas"`, `variant="v2"`, b8, bf16,
+              positions min(287 b, 2015) + t, 32 chained greedy steps: 33
+              matmul_w4 v2 launches a step and no v1; ms per token step,
+              tokens/s, one profiled step; then the same graph in v1, one
+              step from the same feed: logits within phase 8's 1.5% of the
+              largest, greedy tokens equal wherever the top-2 gap exceeds it;
+ 13. kernel   matmul_w4 v2 against its plain version at the three path
+              shapes (scales in bf16, as the net hands them over), float32
+              x, a prefill-sized M, and float32 scales with bf16 x (where
+              v2's dequantized weights differ from v1's; the count is
+              printed); tolerance as phase 7; timed beside its bound, its
+              plain version, v1 on the same inputs and
+              `torch._weight_int4pack_mm`;
+ 14. bottleneck the 12 identity blocks of phase 2's ResNet-50 b128 net (2/3/5/2
+              over the stages: 1x1 relu -> 3x3 relu -> 1x1 + the block's
+              input, `models.identity_bottlenecks`), each through
+              `bottleneck_int8` from the net's tapped input with the net's
+              params, the counts set to 0 just before and read just after
+              (12 launches, nothing else): outputs equal to the net's block
+              outputs (int8 bit for bit, the last block's float32 within
+              rtol 1e-6); then the kernel against its plain version at the
+              four stage shapes, no bias, float32 and bf16 outputs, and
+              H, W not a multiple of the band: int8 equal, float within
+              rtol 1e-6; timed by CUDA-graph replay with x rotated out of
+              L2, beside its bound, its plain version and the unfused
+              chain matmul_int8 -> conv3x3_int8 -> matmul_int8 on the same
+              block (PyTorch has no int8 convolution on CUDA: no library
+              call).
+
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
@@ -107,6 +143,10 @@ KERNEL_META = {
                   "anakin_tpu/kernels/matmul_w4.py:129"),
     "depthwise3x3_int8": ("anakin_tpu_torch/csrc/depthwise3x3_int8.cu",
                           "anakin_tpu/kernels/depthwise_int8.py:171"),
+    "matmul_w4_v2": ("anakin_tpu_torch/csrc/matmul_w4.cu",
+                     "anakin_tpu/kernels/matmul_w4.py:75"),
+    "bottleneck_int8": ("anakin_tpu_torch/csrc/bottleneck_int8.cu",
+                        "anakin_tpu/kernels/bottleneck_int8.py:134"),
 }
 
 
@@ -322,27 +362,34 @@ def summarize(results, counts, units):
     return kernels
 
 
-def kernel_wrappers():
-    from anakin_tpu_torch.kernels import (conv3x3_int8, depthwise3x3_int8,
-                                          flash_attention, matmul_int8,
-                                          matmul_w4)
+def kernel_counters():
+    """{kernel: (wrapper, name of its launch count)}: matmul_w4 counts its
+    two variants apart."""
+    from anakin_tpu_torch.kernels import (bottleneck_int8, conv3x3_int8,
+                                          depthwise3x3_int8, flash_attention,
+                                          matmul_int8, matmul_w4)
 
-    return {"matmul_int8": matmul_int8, "conv3x3_int8": conv3x3_int8,
-            "flash_attention": flash_attention, "matmul_w4": matmul_w4,
-            "depthwise3x3_int8": depthwise3x3_int8}
+    counters = {"matmul_int8": matmul_int8, "conv3x3_int8": conv3x3_int8,
+                "flash_attention": flash_attention, "matmul_w4": matmul_w4,
+                "depthwise3x3_int8": depthwise3x3_int8,
+                "bottleneck_int8": bottleneck_int8}
+    counters = {k: (fn, "launches") for k, fn in counters.items()}
+    counters["matmul_w4_v2"] = (matmul_w4, "launches_v2")
+    return counters
 
 
 def reset_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in kernel_counters().items()}
 
 
 def no_launches():
-    return {name: 0 for name in kernel_wrappers()}
+    return {name: 0 for name in kernel_counters()}
 
 
 def profile_step(fn, step_ms, tag):
@@ -380,7 +427,8 @@ def profile_step(fn, step_ms, tag):
 # ------------------------------------------------------------------ ResNet
 
 def resnet_phases(report, card):
-    """Phases 2-4.  Returns the kernel check rows and the path's counts."""
+    """Phases 2-4.  Returns the kernel check rows, the path's counts and
+    (net, graph, input) for phase 14."""
     import anakin_tpu_torch as ak
     from anakin_tpu_torch.runtime.net import build_forward
 
@@ -479,7 +527,7 @@ def resnet_phases(report, card):
     report["cpu_gpu"] = dict(int8_max_lsb=lsb, int8_diff_elements=n_diff,
                              logits_rel_err=logit_err,
                              softmax_max_abs=soft_err)
-    return results, counts
+    return results, counts, (net, g128, x)
 
 
 # --------------------------------------------------------------------- LLM
@@ -551,19 +599,25 @@ def llm_path_a(report, cfg, params, card):
     return counts
 
 
-def llm_path_b(report, cfg, params, card):
-    """Phase 6: the w4 decode step, 32 chained greedy steps."""
+def w4_ladder(cfg, params, distinct=False, variant=None):
+    """The w4 decode ladder: `weight_only_quantize(bits=4)` of the int8-KV
+    decode step, aligned positions with blend writes (path B) or distinct
+    per-slot positions min(287 b, 2015) + t with row writes (phase 12,
+    `tools/exp_w4_r4.py:49-71`); `variant` sets impl="pallas" and the
+    variant on every dense_w4 node.  Returns (graph, net, run, feed_at):
+    run(steps) chains greedy steps from zero caches and returns the last
+    token, logits and caches; feed_at(t, tok, caches) is step t's feed."""
     import anakin_tpu_torch as ak
     from anakin_tpu_torch.models import build_transformer_decode_step
     from anakin_tpu_torch.quant import weight_only_quantize
 
-    t0 = time.perf_counter()
     g = weight_only_quantize(build_transformer_decode_step(
-        cfg, LLM_BATCH, params, kv_cache_dtype="int8", aligned_pos=True), bits=4)
-    n_w4 = sum(n.op == "dense_w4" for n in g.nodes.values())
-    if n_w4 != 2 * cfg.layers + 1:
-        raise AssertionError(f"expected {2 * cfg.layers + 1} dense_w4 nodes, "
-                             f"got {n_w4}")
+        cfg, LLM_BATCH, params, kv_cache_dtype="int8", aligned_pos=not distinct,
+        cache_update="rows" if distinct else "blend"), bits=4)
+    if variant is not None:
+        for n in g.nodes.values():
+            if n.op == "dense_w4":
+                n.attrs.update(impl="pallas", variant=variant)
     net = ak.Net(g, precision="bf16", device="cuda")
     logits_e = g.outputs[0]
     cache_edges = [(f"cache_{kv}_{i}", g.nodes[f"dec_att_{i}"].outputs[1 + j])
@@ -571,27 +625,50 @@ def llm_path_b(report, cfg, params, card):
     shape = (LLM_BATCH, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
     caches0 = {k: torch.zeros(shape, dtype=torch.int8, device="cuda")
                for k, _ in cache_edges}
+    base = torch.zeros((LLM_BATCH,), dtype=torch.int32, device="cuda")
+    if distinct:
+        last = cfg.max_seq - NEW - 1
+        base = torch.clamp(torch.arange(LLM_BATCH, dtype=torch.int32,
+                                        device="cuda")
+                           * max(1, last // max(1, LLM_BATCH - 1)), max=last)
+
+    def feed_at(t, tok, caches):
+        return dict(caches, input=tok, pos=base + t)
 
     def run(steps):
         caches, tok = dict(caches0), torch.zeros(
             (LLM_BATCH, 1), dtype=torch.int32, device="cuda")
         for t in range(steps):
-            out = net.prediction(dict(caches, input=tok, pos=torch.full(
-                (LLM_BATCH,), t, dtype=torch.int32, device="cuda")))
+            out = net.prediction(feed_at(t, tok, caches))
             tok = torch.argmax(out[logits_e][:, 0, :], -1).to(torch.int32)[:, None]
             caches = {k: out[e] for k, e in cache_edges}
-        return tok, out[logits_e]
+        return tok, out[logits_e], caches
 
+    return g, net, run, feed_at
+
+
+def ladder_path(report, key, tag, cfg, params, card, kernel, **ladder_kw):
+    """Phases 6 and 12: build a w4 ladder, 32 chained greedy steps with
+    the counts set to 0 just before and read just after (33 launches of
+    `kernel` a step, nothing else), ms per token step, tokens/s, one
+    profiled step.  Returns the counts and (net, feed, graph) of the last
+    step's feed."""
+    t0 = time.perf_counter()
+    g, net, run, feed_at = w4_ladder(cfg, params, **ladder_kw)
+    n_w4 = sum(n.op == "dense_w4" for n in g.nodes.values())
+    if n_w4 != 2 * cfg.layers + 1:
+        raise AssertionError(f"expected {2 * cfg.layers + 1} dense_w4 nodes, "
+                             f"got {n_w4}")
     run(2)                                        # warm-up
     torch.cuda.synchronize()
-    log(f"[llm B] w4 graph, weights and warm-up: {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] w4 graph, weights and warm-up: {time.perf_counter() - t0:.1f} s")
     reset_counts()
-    tok, logits = run(NEW)
+    tok, logits, caches = run(NEW)
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"[llm B] launches in {NEW} decode steps: {counts}")
-    if counts != dict(no_launches(), matmul_w4=n_w4 * NEW):
-        raise AssertionError(f"expected {n_w4} matmul_w4 launches a step, "
+    log(f"[{tag}] launches in {NEW} decode steps: {counts}")
+    if counts != dict(no_launches(), **{kernel: n_w4 * NEW}):
+        raise AssertionError(f"expected {n_w4} {kernel} launches a step, "
                              f"got {counts}")
     if not torch.isfinite(logits.float()).all() or tok.min() < 0 \
             or tok.max() >= cfg.vocab:
@@ -599,13 +676,61 @@ def llm_path_b(report, cfg, params, card):
     step_ms = cuda_ms(lambda: run(NEW), iters=1, warmup=0, windows=3) / NEW
     res = dict(batch=LLM_BATCH, steps=NEW, precision="bf16", kv_cache="int8",
                dense_w4_nodes=n_w4, launches=counts, ms_per_step=step_ms,
-               tokens_per_s=LLM_BATCH / step_ms * 1e3)
-    log(f"[llm B] w4 decode b{LLM_BATCH}: {step_ms:.3f} ms/token step, "
+               tokens_per_s=LLM_BATCH / step_ms * 1e3, **ladder_kw)
+    log(f"[{tag}] w4 decode b{LLM_BATCH}: {step_ms:.3f} ms/token step, "
         f"{LLM_BATCH / step_ms * 1e3:.1f} tokens/s | {card}")
-    feed = dict(caches0, input=tok, pos=torch.full(
-        (LLM_BATCH,), NEW, dtype=torch.int32, device="cuda"))
-    res["profile"] = profile_step(lambda: net.prediction(feed), step_ms, "llm B")
-    report["llm_b"] = res
+    feed = feed_at(NEW, tok, caches)
+    res["profile"] = profile_step(lambda: net.prediction(feed), step_ms, tag)
+    report[key] = res
+    return counts, (net, feed, g)
+
+
+def llm_path_b(report, cfg, params, card):
+    """Phase 6: the aligned w4 decode ladder on matmul_w4 v1."""
+    return ladder_path(report, "llm_b", "llm B", cfg, params, card,
+                       "matmul_w4")[0]
+
+
+def llm_path_b_v2(report, cfg, params, card):
+    """Phase 12: the distinct-position ladder on matmul_w4 v2, then one
+    step of the same configuration in v1 from the same feed."""
+    import anakin_tpu_torch as ak
+
+    counts, (net, feed, g) = ladder_path(
+        report, "llm_b_v2", "llm B v2", cfg, params, card, "matmul_w4_v2",
+        distinct=True, variant="v2")
+    g1 = g.clone()
+    for n in g1.nodes.values():
+        if n.op == "dense_w4":
+            n.attrs["variant"] = "v1"
+    net1 = ak.Net(g1, precision="bf16", device="cuda")
+    logits_e = g.outputs[0]
+    # the step writes its cache rows in place: each net gets its own copy
+    l2 = net.prediction({k: v.clone() for k, v in feed.items()})[logits_e]
+    launches = read_counts()
+    l1 = net1.prediction({k: v.clone() for k, v in feed.items()})[logits_e]
+    torch.cuda.synchronize()
+    v1_launches = read_counts()["matmul_w4"] - launches["matmul_w4"]
+    if v1_launches != 2 * cfg.layers + 1:
+        raise AssertionError(f"the v1 step launched matmul_w4 {v1_launches} times")
+    f2, f1 = l2[:, 0].float().cpu(), l1[:, 0].float().cpu()
+    scale = float(f1.abs().max())
+    err = float((f2 - f1).abs().max())
+    top2 = torch.topk(f1, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = f2.argmax(-1) == f1.argmax(-1)
+    decided = gap > LLM_TOL * scale
+    log(f"[llm B v2] v2 vs v1, one step from the same feed: logits max diff "
+        f"{err:.4g} ({err / scale:.3g} of the largest, tolerance {LLM_TOL}), "
+        f"greedy tokens v2 {f2.argmax(-1).tolist()} v1 {f1.argmax(-1).tolist()},"
+        f" top-2 gap {gap.tolist()}")
+    if err > LLM_TOL * scale:
+        raise AssertionError(f"v2 and v1 logits differ by {err}")
+    if not bool(same[decided].all()):
+        raise AssertionError("v2 and v1 greedy tokens differ where decided")
+    report["llm_b_v2"]["vs_v1"] = dict(max_abs_diff=err, rel_to_max=err / scale,
+                                       tokens_equal=same.tolist(),
+                                       top2_gap=gap.tolist())
     return counts
 
 
@@ -693,35 +818,44 @@ def _int4pack_yardstick(x, packed, scales, group):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
-def check_w4(M, K, N, G, dtype, gen, calls):
-    """matmul_w4 against matmul_w4_plain on the card.  Tolerance: the two
-    sum the same float32 products in another order, and any order is
-    within K * 2^-24 * (|x| @ |W|) of the exact sum, so |d| <= 2 K 2^-24
-    (|x| @ |W|)."""
+def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
+    """matmul_w4 (`variant` v1 or v2) against matmul_w4_plain on the card;
+    `bf16_scales` rounds the scales to bf16 first, as a bf16 net hands them
+    over.  Tolerance: the two sum the same float32 products in another
+    order, and any order is within K * 2^-24 * (|x| @ |W|) of the exact
+    sum, so |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
+    same inputs and counts the dequantized weights where the two differ."""
     from anakin_tpu_torch.kernels.matmul_w4 import (matmul_w4, matmul_w4_plain,
-                                                    unpack_w4)
+                                                    unpack_w4, unpack_w4_v2)
     from anakin_tpu_torch.quant.quantize import _w4_group_quantize
 
     rng = np.random.default_rng(M * 7 + K + N)
     p_np, s_np, g = _w4_group_quantize(
         rng.normal(0.0, K ** -0.5, (K, N)).astype(np.float32), G)
     packed, scales = torch.from_numpy(p_np).cuda(), torch.from_numpy(s_np).cuda()
+    if bf16_scales:
+        scales = scales.to(torch.bfloat16).float()
     x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-    launches = matmul_w4.launches
-    got = matmul_w4(x, packed, scales, group=g)
-    want = matmul_w4_plain(x, packed, scales, group=g)
-    w = unpack_w4(packed, scales, g, dtype)
+    launches = matmul_w4.launches, matmul_w4.launches_v2
+    got = matmul_w4(x, packed, scales, group=g, variant=variant)
+    want = matmul_w4_plain(x, packed, scales, group=g, variant=variant)
+    w = (unpack_w4_v2 if variant == "v2" else unpack_w4)(packed, scales, g, dtype)
     mag = x.float().abs() @ w.float().abs()
     d = (got - want).abs()
     ok = bool((d <= 2 * K * 2.0 ** -24 * mag).all())
     # enough copies of the weights that every call reads them from HBM
     n_copies = max(1, -(-100 * 2 ** 20 // (packed.numel() + 4 * scales.numel())))
     copies = [(x, packed.clone(), scales.clone()) for _ in range(n_copies)]
-    ms = graph_ms(rotating(lambda *a: matmul_w4(*a, group=g), copies),
-                  iters=2 * n_copies)
-    plain_ms = graph_ms(rotating(lambda *a: matmul_w4_plain(*a, group=g),
-                                 copies), iters=n_copies)
-    matmul_w4.launches = launches
+    ms = graph_ms(rotating(lambda *a: matmul_w4(*a, group=g, variant=variant),
+                           copies), iters=2 * n_copies)
+    plain_ms = graph_ms(rotating(lambda *a: matmul_w4_plain(
+        *a, group=g, variant=variant), copies), iters=n_copies)
+    v1_ms = weights_differ = None
+    if variant == "v2":
+        v1_ms = graph_ms(rotating(lambda *a: matmul_w4(*a, group=g), copies),
+                         iters=2 * n_copies)
+        weights_differ = int((unpack_w4(packed, scales, g, dtype) != w).sum())
+    matmul_w4.launches, matmul_w4.launches_v2 = launches
     lib, why = _int4pack_yardstick(x, packed, scales, g)
     library_ms = lib_err = None
     if lib is not None:
@@ -743,10 +877,12 @@ def check_w4(M, K, N, G, dtype, gen, calls):
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     bms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
-    return dict(kernel="matmul_w4", shape=[M, K, N, g],
-                dtype=str(dtype).split(".")[-1], ok=ok,
+    return dict(kernel="matmul_w4_v2" if variant == "v2" else "matmul_w4",
+                shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
+                bf16_scales=bf16_scales, ok=ok,
                 max_abs_err=float(d.max()), max_rel_to_mag=float((d / mag).max()),
-                ms=ms, plain_ms=plain_ms,
+                ms=ms, plain_ms=plain_ms, v1_ms=v1_ms,
+                weights_differ_from_v1=weights_differ,
                 library_ms=library_ms, library_rel_err=lib_err, library_none_reason=why,
                 dequant_bf16_matmul_ms=dequant_mm_ms, bound_ms=bms, bound_by=by,
                 calls_per_run=calls)
@@ -798,6 +934,40 @@ def llm_kernels(report, cfg):
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
     report["llm_kernel_configs"] = results
+    return results
+
+
+def w4_v2_kernels(report, cfg):
+    """Phase 13: matmul_w4 v2 against its plain version."""
+    E, F_, B = cfg.embed, 4 * cfg.embed, LLM_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (M, K, N, dtype, scales in bf16, calls per 32 steps)
+        (B, E, F_, bf16, True, cfg.layers * NEW),
+        (B, F_, E, bf16, True, cfg.layers * NEW),
+        (B, E, cfg.vocab, bf16, True, NEW),
+        (B, F_, E, f32, False, 0),
+        (4096, E, F_, bf16, True, 0),
+        (B, E, F_, bf16, False, 0),
+    ]
+    results = []
+    for m, k, n, dt, bs, calls in cases:
+        r = check_w4(m, k, n, 128, dt, gen, calls, variant="v2", bf16_scales=bs)
+        results.append(r)
+        lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        log(f"[kernel] matmul_w4_v2 {m}x{k}->{n} {r['dtype']} scales "
+            f"{'bf16' if bs else 'float32'} x{calls} err={r['max_abs_err']:.3g} "
+            f"({r['max_rel_to_mag']:.2g} of |x|@|W|) ok={r['ok']} "
+            f"ms={r['ms']:.4f} v1={r['v1_ms']:.4f} plain={r['plain_ms']:.3f} "
+            f"int4pack_mm={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"weights differing from v1: {r['weights_differ_from_v1']} of "
+            f"{k * n}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel differs from its plain version: {bad}")
+    report["w4_v2_kernel_configs"] = results
     return results
 
 
@@ -1245,6 +1415,199 @@ def mobilenet_phases(report, card):
     return results, dw_launches
 
 
+# -------------------------------------------------------------- bottleneck
+
+# cases the path does not give: no bias, float32 and bf16 outputs, H that
+# is not a multiple of the band's rows in each of the kernel's two
+# configurations (30: bands of 8, 8, 8, 6; 29: 6, 6, 6, 6, 5; 15: 8, 7), and
+# a C that is not a multiple of 128 with one block an SM (9 x 60)
+BN_EXTRA = [
+    dict(N=32, H=28, W=28, C=512, P=128, bias=False, out="int8"),
+    dict(N=32, H=14, W=14, C=1024, P=256, bias=True, out="float32"),
+    dict(N=32, H=56, W=56, C=256, P=64, bias=True, out="bfloat16"),
+    dict(N=16, H=30, W=30, C=256, P=64, bias=True, out="int8"),
+    dict(N=8, H=29, W=29, C=512, P=128, bias=True, out="int8"),
+    dict(N=8, H=15, W=13, C=1024, P=256, bias=True, out="int8"),
+    dict(N=4, H=9, W=60, C=192, P=64, bias=True, out="int8"),
+]
+_OUT_BYTES = {"int8": 1, "float32": 4, "bfloat16": 2}
+
+
+def _bn_bound(cfg):
+    n, h, w, c, p = (cfg[k] for k in ("N", "H", "W", "C", "P"))
+    nbytes = (n * h * w * c * (1 + _OUT_BYTES[cfg["out"]]) + 2 * c * p
+              + 9 * p * p + 4 * (2 * p + c) * (2 if cfg["bias"] else 1))
+    ops = 2 * n * h * w * (2 * c * p + 9 * p * p)
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
+
+
+def check_bottleneck(cfg, gen):
+    """bottleneck_int8 against its plain version and against the unfused
+    chain of the port's kernels (matmul_int8 -> conv3x3_int8 ->
+    matmul_int8) on random int8 data, the JAX package's test's ranges: int8
+    outputs equal, float outputs within rtol 1e-6.  Times from CUDA-graph
+    replay with x rotated through >= 100 MB of copies."""
+    from anakin_tpu_torch.kernels import (bottleneck_int8, bottleneck_int8_plain,
+                                          conv3x3_int8, matmul_int8)
+
+    n, h, w, c, p = (cfg[k] for k in ("N", "H", "W", "C", "P"))
+
+    def ints(lim, *shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def unif(k):
+        return torch.rand(k, generator=gen, device="cuda") * 2e-4 + 1e-4
+
+    def normal(k):
+        return (torch.randn(k, generator=gen, device="cuda") * 0.1
+                if cfg["bias"] else None)
+
+    x = ints(80, n, h, w, c)
+    wa, wb, wc = ints(60, c, p), ints(20, 3, 3, p, p), ints(60, p, c)
+    wsa, wsb, wsc = unif(p), unif(p), unif(c)
+    ba, bb, bc = normal(p), normal(p), normal(c)
+    kw = dict(in_scale=2e-2, a_scale=1.5e-2, b_scale=1.2e-2, res_scale=2e-2)
+    if cfg["out"] == "int8":
+        kw["out_scale"] = 2.5e-2
+    else:
+        kw["out_dtype"] = getattr(torch, cfg["out"])
+    weights = (wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)
+
+    def chain(x_):
+        rows = x_.reshape(-1, c)
+        a = matmul_int8(rows, wa, wsa, ba, in_scale=kw["in_scale"],
+                        activation="relu", out_scale=kw["a_scale"])
+        b = conv3x3_int8(a.reshape(n, h, w, p), wb, wsb, bb,
+                         in_scale=kw["a_scale"], activation="relu",
+                         out_scale=kw["b_scale"])
+        return matmul_int8(b.reshape(-1, p), wc, wsc, bc, rows,
+                           in_scale=kw["b_scale"], activation="relu",
+                           out_scale=kw.get("out_scale"),
+                           out_dtype=kw.get("out_dtype", torch.float32),
+                           residual_scale=kw["res_scale"]).reshape(n, h, w, c)
+
+    wrappers = (bottleneck_int8, matmul_int8, conv3x3_int8)
+    launches = [f.launches for f in wrappers]
+    got = bottleneck_int8(x, *weights, **kw)
+    want = bottleneck_int8_plain(x, *weights, **kw)
+    unfused = chain(x)
+    torch.cuda.synchronize()
+    chain_equal = torch.equal(got, unfused)
+    if got.dtype == torch.int8:
+        err = float((got.int() - want.int()).abs().max())
+        ok = err == 0
+    else:
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        ok = bool((d <= 1e-6 * want.float().abs()).all())
+    n_copies = max(2, -(-100 * 2 ** 20 // x.numel()))
+    copies = [(x.clone(),) for _ in range(n_copies)]
+    iters = n_copies * -(-20 // n_copies)
+    ms = graph_ms(rotating(lambda x_: bottleneck_int8(x_, *weights, **kw),
+                           copies), iters=iters)
+    unfused_ms = graph_ms(rotating(chain, copies), iters=iters)
+    plain_ms = graph_ms(rotating(lambda x_: bottleneck_int8_plain(
+        x_, *weights, **kw), copies[:2]), iters=2)
+    for f, v in zip(wrappers, launches):
+        f.launches = v
+    bms, by = _bn_bound(cfg)
+    return dict(kernel="bottleneck_int8", **cfg, ok=ok and chain_equal,
+                max_abs_err=err, unfused_chain_equal=chain_equal, ms=ms,
+                plain_ms=plain_ms, unfused_chain_ms=unfused_ms,
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def bottleneck_phase(report, card, resnet):
+    """Phase 14: the 12 identity blocks of phase 2's ResNet-50 b128 net
+    through bottleneck_int8, then the kernel against its plain version."""
+    from anakin_tpu_torch.kernels.bottleneck_int8 import identity_block
+    from anakin_tpu_torch.models import identity_bottlenecks
+    from anakin_tpu_torch.runtime.net import build_forward
+
+    net, g, x = resnet
+    blocks = identity_bottlenecks(g)
+    widths = [g.params[a.inputs[1]].shape[3] for a, _, _ in blocks]
+    if widths != [64] * 2 + [128] * 3 + [256] * 5 + [512] * 2:
+        raise AssertionError(f"identity blocks of widths {widths}")
+    edges = [e for a, _, c in blocks for e in (a.inputs[0], c.outputs[0])]
+    fwd, _ = build_forward(g, "bf16", tap_edges=edges)
+    with torch.inference_mode():
+        taps = fwd(net.params, {"input": x})
+        reset_counts()
+        ys = [identity_block(b, net.params, taps[b[0].inputs[0]])
+              for b in blocks]
+        torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[bottleneck] launches over the {len(blocks)} identity blocks: {counts}")
+    if counts != dict(no_launches(), bottleneck_int8=len(blocks)):
+        raise AssertionError(f"expected {len(blocks)} bottleneck_int8 launches, "
+                             f"got {counts}")
+    calls, worst = {}, 0.0
+    for (a, _, c), y in zip(blocks, ys):
+        want = taps[c.outputs[0]]
+        if y.dtype != want.dtype or y.shape != want.shape:
+            raise AssertionError(f"{c.name}: {y.dtype} {tuple(y.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        if y.dtype == torch.int8:
+            if not torch.equal(y, want):
+                raise AssertionError(f"{c.name}: int8 block output differs "
+                                     f"from the net's")
+        else:
+            d = (y.float() - want.float()).abs()
+            worst = max(worst, float(d.max()))
+            if not bool((d <= 1e-6 * want.float().abs()).all()):
+                raise AssertionError(f"{c.name}: float block output differs "
+                                     f"by {float(d.max())}")
+        n_, h, w, cc = y.shape
+        cfg = dict(N=n_, H=h, W=w, C=cc, P=g.params[a.inputs[1]].shape[3],
+                   bias=bool(a.attr("has_bias")),
+                   out="int8" if y.dtype == torch.int8
+                   else str(y.dtype).split(".")[-1])
+        key = tuple(sorted(cfg.items()))
+        calls[key] = calls.get(key, 0) + 1
+    log(f"[bottleneck] all {len(blocks)} blocks equal the net's block outputs "
+        f"(int8 bit for bit; float max abs diff {worst:g})")
+    report["bottleneck"] = dict(blocks=len(blocks), launches=counts,
+                                float_max_abs_diff=worst)
+    del taps, ys
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    results = []
+    for cfg, n_calls in [(dict(k), v) for k, v in calls.items()] + [
+            (e, 0) for e in BN_EXTRA]:
+        r = check_bottleneck(cfg, gen)
+        r["calls_per_run"] = n_calls
+        results.append(r)
+        log(f"[kernel] bottleneck_int8 {r['N']}x{r['H']}x{r['W']}x{r['C']} "
+            f"P{r['P']} bias={int(r['bias'])} out={r['out']} x{n_calls} "
+            f"err={r['max_abs_err']:g} chain-equal={r['unfused_chain_equal']} "
+            f"ms={r['ms']:.4f} unfused-chain={r['unfused_chain_ms']:.4f} "
+            f"plain={r['plain_ms']:.3f} bound={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) lib=none")
+    path = [r for r in results if r["calls_per_run"]]
+
+    def total(key):
+        return sum(r[key] * r["calls_per_run"] for r in path)
+
+    log(f"[kernel] bottleneck_int8 over the 12 blocks: ms={total('ms'):.4f} "
+        f"unfused-chain={total('unfused_chain_ms'):.4f} "
+        f"bound={total('bound_ms'):.4f} plain={total('plain_ms'):.3f}")
+    report["bottleneck"].update(ms=total("ms"), bound_ms=total("bound_ms"),
+                                unfused_chain_ms=total("unfused_chain_ms"),
+                                plain_ms=total("plain_ms"))
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel differs from its plain version or the "
+                             f"unfused chain: {bad}")
+    report["bottleneck_kernel_configs"] = results
+    log("[kernel] bottleneck_int8 has no library_ms: PyTorch has no int8 "
+        "convolution on CUDA")
+    return results, counts["bottleneck_int8"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1271,7 +1634,7 @@ def main() -> int:
                 log(f"[build]   {line.strip()}")
 
     # ------------------------------------------------------- 2-4. ResNet
-    results, counts = resnet_phases(report, card)
+    results, counts, resnet = resnet_phases(report, card)
     units = {"matmul_int8": "one ResNet-50 forward",
              "conv3x3_int8": "one ResNet-50 forward"}
     log(f"[time] ResNet phases done at {time.perf_counter() - t_start:.0f} s")
@@ -1285,7 +1648,6 @@ def main() -> int:
     counts["flash_attention"] = llm_path_a(report, cfg, params, card)[
         "flash_attention"]
     counts["matmul_w4"] = llm_path_b(report, cfg, params, card)["matmul_w4"]
-    del params
     units.update(flash_attention="one generate (its 512-token prefill)",
                  matmul_w4=f"{NEW} w4 decode steps")
     results += llm_kernels(report, cfg)
@@ -1296,6 +1658,23 @@ def main() -> int:
     dw_results, counts["depthwise3x3_int8"] = mobilenet_phases(report, card)
     results += dw_results
     units["depthwise3x3_int8"] = "one MobileNet v1 and one v2 forward"
+    log(f"[time] MobileNet phases done at {time.perf_counter() - t_start:.0f} s")
+
+    # -------------------------------------------------- 12-13. w4 v2 ladder
+    counts["matmul_w4_v2"] = llm_path_b_v2(report, cfg, params, card)[
+        "matmul_w4_v2"]
+    del params
+    units["matmul_w4_v2"] = f"{NEW} distinct-position w4 decode steps"
+    results += w4_v2_kernels(report, cfg)
+    log(f"[time] w4 v2 phases done at {time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------------------ 14. bottleneck
+    bn_results, counts["bottleneck_int8"] = bottleneck_phase(report, card,
+                                                             resnet)
+    del resnet
+    results += bn_results
+    units["bottleneck_int8"] = ("the 12 identity blocks of one ResNet-50 b128 "
+                                "forward")
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)

@@ -38,7 +38,8 @@ import anakin_tpu_torch as pt
 from anakin_tpu_torch.convert import graph_from_jax, params_from_numpy
 from anakin_tpu_torch.graph.ir import Node, topological_order
 from anakin_tpu_torch.kernels.flash_attention import flash_attention
-from anakin_tpu_torch.kernels.matmul_w4 import matmul_w4
+from anakin_tpu_torch.kernels.matmul_w4 import (matmul_w4, unpack_w4,
+                                                unpack_w4_v2)
 from anakin_tpu_torch.models import transformer as pt_tf
 from anakin_tpu_torch.ops import get_op
 from anakin_tpu_torch.quant import weight_only_quantize
@@ -231,22 +232,84 @@ def test_matmul_w4_plain_matches_pallas(rng, dtype, M, K, N, G):
     _close_f32(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,G", [(8, 256, 1024, 128), (5, 1024, 256, 128),
+                                     (33, 256, 520, 64), (1, 512, 512, 512)])
+def test_matmul_w4_v2_plain_matches_pallas(rng, dtype, M, K, N, G):
+    """v2's plain version against the Pallas v2 kernel, float32 scales on
+    both sides (so in bf16 both round the scale to bf16 first)."""
+    from anakin_tpu.quant.quantize import _w4_group_quantize
+
+    packed, scale, g = _w4_group_quantize(
+        rng.normal(size=(K, N)).astype(np.float32), G)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    want = jax_matmul_w4(_j(x, jd), _j(packed), _j(scale), group=g,
+                         block_n=256, block_k=256, variant="v2",
+                         interpret=True)
+    got = matmul_w4(_t(x, td), _t(packed), _t(scale), group=g, variant="v2")
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    _close_f32(got, want)
+
+
+@pytest.mark.parametrize("case", ["float32", "bf16_scales",
+                                  "float32_scales_bf16_x"])
+def test_matmul_w4_v2_dequant_against_v1(rng, case):
+    """The dequantized weights of the two variants, read exactly through
+    the Pallas kernels on an identity x: equal in float32 and where the
+    scales are already bf16 (a bf16 net casts them so); with float32
+    scales and bf16 x, v2 rounds the scale to bf16 before the product (a
+    double rounding), so some weights differ, each by at most one bf16
+    ulp."""
+    from anakin_tpu.quant.quantize import _w4_group_quantize
+
+    K, N = 256, 384
+    packed, scale, g = _w4_group_quantize(
+        rng.normal(size=(K, N)).astype(np.float32), 128)
+    if case == "bf16_scales":
+        scale = np.array(jnp.asarray(scale).astype(jnp.bfloat16)
+                         .astype(jnp.float32))
+    dtype = "float32" if case == "float32" else "bfloat16"
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    eye = np.eye(K, dtype=np.float32)
+    jax_w = {v: np.asarray(jax_matmul_w4(
+        _j(eye, jd), _j(packed), _j(scale), group=g, block_n=128,
+        block_k=128, variant=v, interpret=True)) for v in ("v1", "v2")}
+    w1 = unpack_w4(_t(packed), _t(scale), g, td).float()
+    w2 = unpack_w4_v2(_t(packed), _t(scale), g, td).float()
+    np.testing.assert_array_equal(w1.numpy(), jax_w["v1"])
+    np.testing.assert_array_equal(w2.numpy(), jax_w["v2"])
+    if case != "float32_scales_bf16_x":
+        assert torch.equal(w1, w2)
+        return
+    differ = w1 != w2
+    assert 0 < int(differ.sum()) < differ.numel() // 2
+    assert bool(((w1 - w2).abs() <= BF16_ULP * w1.abs()).all())
+    rounded_first = unpack_w4(_t(packed), _t(scale).to(td).float(), g, td)
+    assert torch.equal(w2, rounded_first.float())
+
+
 def test_matmul_w4_refuses_v2_and_other_devices():
-    """v2 raises; a device that is neither CPU nor CUDA raises in both LLM
-    wrappers; a meta tensor (shape inference) gets a meta result."""
+    """An unknown variant raises (the JAX package would quietly run v1 for
+    it); a device that is neither CPU nor CUDA raises in both LLM wrappers,
+    for v1 and v2 alike; a meta tensor (shape inference) gets a meta result
+    in both variants."""
     x = torch.zeros((2, 128))
     packed = torch.zeros((64, 8), dtype=torch.int8)
     scales = torch.ones((1, 8))
-    with pytest.raises(NotImplementedError):
-        matmul_w4(x, packed, scales, group=128, variant="v2")
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        matmul_w4(_Elsewhere((2, 128), torch.float32),
-                  _Elsewhere((64, 8), torch.int8),
-                  _Elsewhere((1, 8), torch.float32), group=128)
+    with pytest.raises(ValueError, match="variant"):
+        matmul_w4(x, packed, scales, group=128, variant="v3")
+    for variant in ("v1", "v2"):
+        with pytest.raises(ValueError, match="runs on cuda or cpu"):
+            matmul_w4(_Elsewhere((2, 128), torch.float32),
+                      _Elsewhere((64, 8), torch.int8),
+                      _Elsewhere((1, 8), torch.float32), group=128,
+                      variant=variant)
+        y = matmul_w4(x.to("meta"), packed.to("meta"), scales.to("meta"),
+                      group=128, variant=variant)
+        assert y.device.type == "meta" and tuple(y.shape) == (2, 8)
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         flash_attention(*(_Elsewhere((1, 2, 4, 32), torch.float32),) * 3)
-    y = matmul_w4(x.to("meta"), packed.to("meta"), scales.to("meta"), group=128)
-    assert y.device.type == "meta" and tuple(y.shape) == (2, 8)
     q = torch.zeros((1, 2, 4, 32), device="meta")
     y = flash_attention(q, q, q, causal=True)
     assert y.device.type == "meta" and tuple(y.shape) == (1, 2, 4, 32)
@@ -285,6 +348,38 @@ def test_dense_w4_matches_jax(rng, interpret, precision, impl, epilogue):
                           [td if f else None for f in fl], axis=2,
                           w4_group=G, impl=impl, **epilogue)
     assert got[0].dtype == td and tuple(got[0].shape) == (2, 3, N)
+    (_close_f32 if precision == "fp32" else _close_bf16)(got[0], want[0])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+def test_dense_w4_routes_like_jax(rng, interpret, monkeypatch, precision,
+                                  impl, variant):
+    """dense_w4 takes matmul_w4 v2 exactly when the node says impl="pallas"
+    and variant="v2", as the JAX op does (it reads `variant` on its Pallas
+    route only), and matches the JAX op in each of the four combinations;
+    the scales are in the activation dtype, as a `Net` casts them."""
+    from anakin_tpu.quant.quantize import _w4_group_quantize
+    from anakin_tpu_torch.ops import quantized
+
+    variants = []
+
+    def spy(*args, variant, **kw):
+        variants.append(variant)
+        return matmul_w4(*args, variant=variant, **kw)
+
+    monkeypatch.setattr(quantized, "matmul_w4", spy)
+    K, N = 256, 384
+    packed, scale, G = _w4_group_quantize(
+        rng.normal(size=(K, N)).astype(np.float32) * 0.05, 128)
+    arrays = [rng.normal(size=(4, K)).astype(np.float32), packed, scale]
+    jd = jnp.float32 if precision == "fp32" else jnp.bfloat16
+    td = torch.float32 if precision == "fp32" else torch.bfloat16
+    got, want = _run_both("dense_w4", arrays, [jd, None, jd], [td, None, td],
+                          w4_group=G, impl=impl, variant=variant)
+    assert variants == ["v2" if (impl, variant) == ("pallas", "v2") else "v1"]
+    assert got[0].dtype == td and tuple(got[0].shape) == (4, N)
     (_close_f32 if precision == "fp32" else _close_bf16)(got[0], want[0])
 
 
@@ -556,8 +651,13 @@ def test_kernel_sources_and_launch_counters():
     from anakin_tpu_torch.kernels import _build
 
     assert {"flash_attention", "matmul_w4"} <= set(_build.SOURCES)
-    before = (flash_attention.launches, matmul_w4.launches)
+    def counts():
+        return (flash_attention.launches, matmul_w4.launches,
+                matmul_w4.launches_v2)
+
+    before = counts()
     flash_attention(*(torch.zeros((1, 2, 4, 32)),) * 3)
-    matmul_w4(torch.zeros((2, 128)), torch.zeros((64, 8), dtype=torch.int8),
-              torch.ones((1, 8)), group=128)
-    assert (flash_attention.launches, matmul_w4.launches) == before
+    for variant in ("v1", "v2"):
+        matmul_w4(torch.zeros((2, 128)), torch.zeros((64, 8), dtype=torch.int8),
+                  torch.ones((1, 8)), group=128, variant=variant)
+    assert counts() == before
