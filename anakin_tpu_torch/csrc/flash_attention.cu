@@ -15,35 +15,60 @@
 // Replaces the TPU kernel anakin_tpu/kernels/flash_attention.py::
 // flash_attention, whose grid walks (batch * head, q tile, kv tile) with the
 // kv axis sequential and the running max, sum and accumulator in VMEM.
-// Here one block owns one (batch * head, q tile) and loops over the kv tiles
+// Here one block owns a tile of query rows and loops over the kv tiles
 // itself, keeping the running max, sum and output accumulator in
-// registers; a causal block stops at the diagonal tile.  A ragged Sq or Sk
-// is masked in the kernel (columns past Sk weigh exactly 0), so nothing is
-// padded.
+// registers; a causal block stops at its last row's diagonal tile.  A
+// ragged Sq or Sk is masked in the kernel (columns past Sk weigh exactly
+// 0), so nothing is padded.
 //
 // What bounds it on an H100: the function reads q, k, v once and writes
-// out once, and does 4 * D operations per unmasked (row, col) pair.  At the
-// LLM prefill's [8, 16, 512, 128] with 8 kv heads that is about 50 MB and
-// 8.6 G operations: bytes (15 us at 3.35 TB/s) bound it over the bf16
-// tensor-core rate (8.7 us).  At S = 2048 the operations bound it.
+// out once, and does 4 * D operations per unmasked (row, col) pair (6 * D
+// here, see P below).  At the LLM prefill's [8, 16, 512, 128] with 8 kv
+// heads that is about 50 MB and 8.6 G operations: bytes (15 us at 3.35
+// TB/s) bound it over the bf16 tensor-core rate (8.7 us; 13 us at 6 * D).
+// At S = 2048 the operations bound it.  So the kernel has to keep the
+// tensor cores fed from shared memory and spend few other instructions per
+// score.
 //
-// bf16 (flash_bf16): 4 warps, 64 query rows, kv tiles of 64 keys in shared
-// memory.  Each warp keeps its 16 rows of q as mma.sync A fragments.
+// bf16 (flash_bf16): 4 warps, 128 query rows a block, each warp two tiles
+// of 16 rows (one where the grid would hold fewer than two blocks an SM;
+// then 64 rows a block), kv tiles of 32 keys (64 with one row tile).
+//   * Each K and V fragment a warp reads feeds both of its row tiles, which
+//     halves the shared-memory reads per mma and gives each warp two
+//     independent chains of mma and softmax work.
+//   * Grouped heads share a block: when H / Hkv is even, the block holds
+//     the rows of two query heads of one kv head, so each K/V tile leaves
+//     L2 once for 128 rows (else 128 rows of one head).
+//   * q, then the K/V tiles, stream through cp.async into dynamic shared
+//     memory, the next tile in flight during this one's mma, one block
+//     barrier per tile.  Rows are padded by 16 bytes, so ldmatrix reads 8
+//     rows from 8 distinct bank groups.
+//   * Fragments come from ldmatrix.x4 (q and K, for S = q k^T) and
+//     ldmatrix.x4.trans (V, for P V).
+//   * Scores are scaled by sm_scale * log2(e) and exponentiated with one
+//     ex2.approx each.  Only a tile that crosses a warp's diagonal, runs past
+//     Sk, or has segment ids is masked; the others take one FFMA and one
+//     ex2 per score.  The accumulator is rescaled only when a row's max
+//     moved.
+//   * Causal q tiles are scheduled heaviest first (the last rows visit the
+//     most kv tiles), so the short blocks fill the tail.
+// What is left: mma.sync with every fragment through registers keeps it
+// slower than PyTorch's fused attention at the prefill shape (PERF.md);
+// wgmma with K and V as shared-memory operands is the next step.
 // S = q k^T is mma.sync m16n8k16 with float32 accumulation: the bf16
-// products are exact, so S equals the Pallas kernel's float32 dot up to
-// the order of the sums.  P @ V: P is float32 in the C fragments; it goes
-// into the A operand as two bf16 halves, hi = bf16(P) and lo = bf16(P - hi),
-// with two mma each, so P keeps about 16 bits (relative error <= 2^-17)
-// against the 8 of a single bf16 rounding.  The output's relative error
-// stays far below its own bf16 rounding (2^-9): stated tolerance against
-// the plain version, |diff| <= 2^-7 |want| + 3e-5 max|v|, one bf16 ulp.
+// products are exact, so S equals the Pallas kernel's float32 dot up to the
+// order of the sums.  P @ V: P is float32 in the C fragments; it goes into
+// the A operand as two bf16 halves, hi = bf16(P) and lo = bf16(P - hi), with
+// two mma each, so P keeps about 16 bits (relative error <= 2^-17) against
+// the 8 of a single bf16 rounding, as the Pallas kernel's float32 P does.
+// The output's relative error stays far below its own bf16 rounding (2^-9):
+// stated tolerance against the plain version, |diff| <= 2^-7 |want| + 3e-5
+// max|v|, one bf16 ulp.
 //
 // float32 (flash_f32): fp32 FMA (no TF32), 4 threads per query row, 32 rows
 // and kv tiles of 16 keys per block, p staged in shared memory.  Stated
-// tolerance: |diff| <= 3e-5 max|v| (float32 sums in another order).
-//
-// This first version loads its tiles with plain 16-byte loads and no
-// pipelining; cp.async / TMA double-buffering and wgmma are the next step.
+// tolerance: |diff| <= 3e-5 max|v| (float32 sums in another order).  No
+// path of the port runs it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,177 +115,267 @@ __device__ __forceinline__ float mask_score(const Args& a, float s, int row,
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int BQ = 64, BK = 64, WARPS = 4;
+constexpr int FW = 4;             // warps per block
+constexpr int FSTAGES = 2;        // kv tiles in the ring
+// MQ: 16-row tiles of q per warp (2, or 1 where the grid would be short);
+// keys per kv tile: 32 with two row tiles, 64 with one (registers)
+__host__ __device__ constexpr int kv_block(int mq) { return mq == 2 ? 32 : 64; }
+// query rows per block, over 1 or 2 heads
+__host__ __device__ constexpr int block_rows(int mq) { return 16 * mq * FW; }
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-    flash_bf16(Args a) {
-  constexpr int LD = D + 8;  // bf16 row stride: conflict-free fragment reads
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
-  __shared__ int kseg_s[BK];
+template <int D, int MQ>
+constexpr int flash_smem() {
+  return FSTAGES * (2 * kv_block(MQ) * (D + 8) * 2 + kv_block(MQ) * 4) +
+         FW * 16 * MQ * (D + 8) * 2;
+}
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * BQ;
+// 2^x: one MUFU.EX2 (relative error about 2^-22); 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// hpb: query heads per block (1 or 2).  Grid: (B * Hkv * (H / Hkv) / hpb,
+// q tiles), the q tiles in y from the last (heaviest under causal) down.
+// Each warp owns MQ tiles of 16 query rows, so every K and V fragment it
+// reads from shared memory feeds MQ mma.
+template <int D, int MQ>
+__global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
+  constexpr int LD = D + 8;  // bf16 row stride: 16 bytes of padding
+  constexpr int WR = 16 * MQ;  // query rows per warp
+  constexpr int FBK = kv_block(MQ);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [FSTAGES][FBK][LD]
+  __nv_bfloat16* vs = ks + FSTAGES * FBK * LD;
+  __nv_bfloat16* qsm = vs + FSTAGES * FBK * LD;                  // [FW][WR][LD]
+  int* ksg = reinterpret_cast<int*>(qsm + FW * WR * LD);          // [FSTAGES][FBK]
+
+  const int R = a.H / a.Hkv, groups = R / hpb, bq = block_rows(MQ) / hpb;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int hg = blockIdx.x % groups, hk = (blockIdx.x / groups) % a.Hkv;
+  const int b = blockIdx.x / (groups * a.Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  const int wph = FW / hpb;  // warps per head
+  const int h = hk * R + hg * hpb + warp / wph;
+  const int q0 = qt * bq, wr0 = q0 + (warp % wph) * WR;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
-                           (size_t)bh * a.Sq * D;
+                           ((size_t)b * a.H + h) * a.Sq * D;
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) +
                             ((size_t)b * a.Hkv + hk) * a.Sk * D;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) +
                             ((size_t)b * a.Hkv + hk) * a.Sk * D;
 
-  // this thread's two query rows
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  int qs0 = 0, qs1 = 0;
-  if (a.qseg != nullptr) {
-    if (r0 < a.Sq) qs0 = a.qseg[(size_t)b * a.Sq + r0];
-    if (r1 < a.Sq) qs1 = a.qseg[(size_t)b * a.Sq + r1];
-  }
+  const int n_tiles = kv_tiles(a, q0, bq, FBK);
+  const int w_tiles = wr0 < a.Sq ? kv_tiles(a, wr0, WR, FBK) : 0;
 
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(q + (size_t)r0 * D + c);
-    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(q + (size_t)r1 * D + c);
-    qa[kk][0] = r0 < a.Sq ? p0[0] : 0u;
-    qa[kk][1] = r1 < a.Sq ? p1[0] : 0u;
-    qa[kk][2] = r0 < a.Sq ? p0[4] : 0u;
-    qa[kk][3] = r1 < a.Sq ? p1[4] : 0u;
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const int n_tiles = kv_tiles(a, q0, BQ, BK);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * BK;
-    // K and V tiles: 16-byte chunks, rows past Sk zero-filled
-    for (int c = threadIdx.x; c < BK * D / 8; c += WARPS * 32) {
+  {  // this warp's rows of q, rows past Sq zero: the oldest cp.async group
+    __nv_bfloat16* qd = qsm + warp * WR * LD;
+    for (int c = lane; c < WR * D / 8; c += 32) {
       const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (key0 + r < a.Sk) {
-        kv = *reinterpret_cast<const uint4*>(kg + (size_t)(key0 + r) * D + cc);
-        vv = *reinterpret_cast<const uint4*>(vg + (size_t)(key0 + r) * D + cc);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + cc) = kv;
-      *reinterpret_cast<uint4*>(vs + r * LD + cc) = vv;
+      const bool ok = wr0 + r < a.Sq;
+      ak::cp16(qd + r * LD + cc, q + (ok ? (size_t)(wr0 + r) * D + cc : 0), ok);
     }
-    if (a.kseg != nullptr && threadIdx.x < BK)
-      kseg_s[threadIdx.x] = key0 + threadIdx.x < a.Sk
-                                ? a.kseg[(size_t)b * a.Sk + key0 + threadIdx.x]
-                                : 0;
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows and the tile's 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (nt * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        ak::mma_bf16(s[nt], qa[kk], b0, b1);
-      }
-    }
-
-    // scale, mask, running max
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cit = nt * 8 + 2 * t + (e & 1);
-        const bool hi = e >= 2;
-        s[nt][e] = mask_score(a, s[nt][e] * a.sm_scale, hi ? r1 : r0,
-                              key0 + cit, hi ? qs1 : qs0, kseg_s, cit);
-        if (hi) mx1 = fmaxf(mx1, s[nt][e]); else mx0 = fmaxf(mx0, s[nt][e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = al0 * l0 + sum0;
-    l1 = al1 * l1 + sum1;
-
-    // acc = acc * alpha + P @ V, P split into bf16 hi + lo; the products
-    // accumulate straight into the rescaled acc (registers are the limit)
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= al0;
-      o[dt][1] *= al0;
-      o[dt][2] *= al1;
-      o[dt][3] *= al1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // a[0]: row g, n-tile 2kk; a[1]: row g+8, n-tile 2kk;
-        // a[2]: row g, n-tile 2kk+1; a[3]: row g+8, n-tile 2kk+1
-        const float p0 = s[2 * kk + (i >> 1)][(i & 1) ? 2 : 0];
-        const float p1 = s[2 * kk + (i >> 1)][(i & 1) ? 3 : 1];
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(p0);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(p1);
-        ph[i] = ak::pack_bf16(h0, h1);
-        pl[i] = ak::pack_f32_bf16(p0 - __bfloat162float(h0),
-                                  p1 - __bfloat162float(h1));
-      }
-      const __nv_bfloat16* v0 = vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vp = v0 + dt * 8;
-        const uint32_t b0 = ak::pack_bf16(vp[0], vp[LD]);
-        const uint32_t b1 = ak::pack_bf16(vp[8 * LD], vp[9 * LD]);
-        ak::mma_bf16(o[dt], ph, b0, b1);
-        ak::mma_bf16(o[dt], pl, b0, b1);
-      }
-    }
-    __syncthreads();  // the tiles are overwritten next
+    ak::cp_commit();
   }
-
-  const float li0 = l0 == 0.f ? 1.f : 1.f / l0;
-  const float li1 = l1 == 0.f ? 1.f : 1.f / l1;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + (size_t)bh * a.Sq * D;
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const int key0 = j * FBK, slot = j % FSTAGES;
+      __nv_bfloat16* kd = ks + slot * FBK * LD;
+      __nv_bfloat16* vd = vs + slot * FBK * LD;
+      for (int c = threadIdx.x; c < FBK * D / 8; c += FW * 32) {
+        const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
+        const bool ok = key0 + r < a.Sk;
+        const size_t off = ok ? (size_t)(key0 + r) * D + cc : 0;
+        ak::cp16(kd + r * LD + cc, kg + off, ok);
+        ak::cp16(vd + r * LD + cc, vg + off, ok);
+      }
+      if (a.kseg != nullptr && threadIdx.x < FBK)
+        ksg[slot * FBK + threadIdx.x] =
+            key0 + (int)threadIdx.x < a.Sk ? a.kseg[(size_t)b * a.Sk + key0 + threadIdx.x] : 0;
+    }
+    ak::cp_commit();
+  };
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < a.Sq)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r0 * D + c) =
-          ak::pack_f32_bf16(o[dt][0] * li0, o[dt][1] * li0);
-    if (r1 < a.Sq)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r1 * D + c) =
-          ak::pack_f32_bf16(o[dt][2] * li1, o[dt][3] * li1);
+  for (int j = 0; j < FSTAGES - 1; ++j) issue(j);
+
+  float o[MQ][D / 8][4];
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) o[mq][i][0] = o[mq][i][1] = o[mq][i][2] = o[mq][i][3] = 0.f;
+  // running max (in units of sm_scale * log2 e) and sum of each row
+  float m[MQ][2], l[MQ][2];
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq) m[mq][0] = m[mq][1] = -INFINITY, l[mq][0] = l[mq][1] = 0.f;
+  const float sc = a.sm_scale * kLog2e;
+  const __nv_bfloat16* qw = qsm + warp * WR * LD;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    ak::cp_wait<FSTAGES - 2>();
+    __syncthreads();  // tile j (and q) is in; every warp is done with tile j - 1
+    issue(j + FSTAGES - 1);
+    if (j >= w_tiles) continue;  // past this warp's diagonal
+    const int key0 = j * FBK, slot = j % FSTAGES;
+    const __nv_bfloat16* kt = ks + slot * FBK * LD;
+    const __nv_bfloat16* vt = vs + slot * FBK * LD;
+
+    // S = q k^T for this warp's rows and the tile's keys; ldmatrix
+    // matrices: K (keys 8nt.., d 16kk..), (.., d 16kk+8..), the same at
+    // kk+1; q (rows 16mq.., d 16kk..) x4 as one A fragment
+    float s[MQ][FBK / 8][4];
+#pragma unroll
+    for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) s[mq][nt][0] = s[mq][nt][1] = s[mq][nt][2] = s[mq][nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; kk += 2) {
+      uint32_t qa[MQ][2][4];
+#pragma unroll
+      for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          ak::ldsm4(qa[mq][c], qw + (16 * mq + lane % 16) * LD + (kk + c) * 16 + lane / 16 * 8);
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) {
+        uint32_t kb[4];
+        ak::ldsm4(kb, kt + (nt * 8 + lane % 8) * LD + (kk + lane / 16) * 16 + (lane / 8) % 2 * 8);
+#pragma unroll
+        for (int mq = 0; mq < MQ; ++mq) {
+          ak::mma_bf16(s[mq][nt], qa[mq][0], kb[0], kb[1]);
+          ak::mma_bf16(s[mq][nt], qa[mq][1], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale into log2 units, mask where needed, running max
+    const bool masked = (a.causal && key0 + FBK - 1 > wr0) || key0 + FBK > a.Sk ||
+                        a.qseg != nullptr;
+    float al[MQ][2];
+#pragma unroll
+    for (int mq = 0; mq < MQ; ++mq) {
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+      if (masked) {
+        const int* kseg_s = ksg + slot * FBK;
+        const int r0 = wr0 + 16 * mq + g;  // this thread's rows: r0, r0 + 8
+        int qs[2] = {0, 0};
+        if (a.qseg != nullptr) {
+          if (r0 < a.Sq) qs[0] = a.qseg[(size_t)b * a.Sq + r0];
+          if (r0 + 8 < a.Sq) qs[1] = a.qseg[(size_t)b * a.Sq + r0 + 8];
+        }
+#pragma unroll
+        for (int nt = 0; nt < FBK / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int cit = nt * 8 + 2 * t + (e & 1);
+            const int hi = e >> 1;
+            s[mq][nt][e] = mask_score(a, s[mq][nt][e] * sc, r0 + 8 * hi, key0 + cit,
+                                      qs[hi], kseg_s, cit);
+            if (hi) mx1 = fmaxf(mx1, s[mq][nt][e]); else mx0 = fmaxf(mx0, s[mq][nt][e]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < FBK / 8; ++nt) {
+          mx0 = fmaxf(mx0, fmaxf(s[mq][nt][0], s[mq][nt][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mq][nt][2], s[mq][nt][3]));
+        }
+        mx0 *= sc;
+        mx1 *= sc;
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m[mq][0], mx0), mn1 = fmaxf(m[mq][1], mx1);
+      al[mq][0] = ex2(m[mq][0] - mn0);
+      al[mq][1] = ex2(m[mq][1] - mn1);
+      m[mq][0] = mn0;
+      m[mq][1] = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) {
+        if (masked) {
+          s[mq][nt][0] = ex2(s[mq][nt][0] - mn0);
+          s[mq][nt][1] = ex2(s[mq][nt][1] - mn0);
+          s[mq][nt][2] = ex2(s[mq][nt][2] - mn1);
+          s[mq][nt][3] = ex2(s[mq][nt][3] - mn1);
+        } else {
+          s[mq][nt][0] = ex2(fmaf(s[mq][nt][0], sc, -mn0));
+          s[mq][nt][1] = ex2(fmaf(s[mq][nt][1], sc, -mn0));
+          s[mq][nt][2] = ex2(fmaf(s[mq][nt][2], sc, -mn1));
+          s[mq][nt][3] = ex2(fmaf(s[mq][nt][3], sc, -mn1));
+        }
+        sum0 += s[mq][nt][0] + s[mq][nt][1];
+        sum1 += s[mq][nt][2] + s[mq][nt][3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l[mq][0] = al[mq][0] * l[mq][0] + sum0;
+      l[mq][1] = al[mq][1] * l[mq][1] + sum1;
+      // acc = acc * alpha, skipped where no row's max moved
+      if (__any_sync(0xffffffffu, al[mq][0] != 1.f || al[mq][1] != 1.f)) {
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt) {
+          o[mq][dt][0] *= al[mq][0];
+          o[mq][dt][1] *= al[mq][0];
+          o[mq][dt][2] *= al[mq][1];
+          o[mq][dt][3] *= al[mq][1];
+        }
+      }
+    }
+
+    // acc += P @ V, P split into bf16 hi + lo; ldmatrix.trans matrices:
+    // (keys 16kk.., d 8dt..), (keys 16kk+8.., d 8dt..), the same at dt + 1
+#pragma unroll
+    for (int kk = 0; kk < FBK / 16; ++kk) {
+#pragma unroll
+      for (int mq = 0; mq < MQ; ++mq) {
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p0 = s[mq][2 * kk + (i >> 1)][(i & 1) ? 2 : 0];
+          const float p1 = s[mq][2 * kk + (i >> 1)][(i & 1) ? 3 : 1];
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(p0);
+          const __nv_bfloat16 h1 = __float2bfloat16_rn(p1);
+          ph[i] = ak::pack_bf16(h0, h1);
+          pl[i] = ak::pack_f32_bf16(p0 - __bfloat162float(h0),
+                                    p1 - __bfloat162float(h1));
+        }
+#pragma unroll
+        for (int dt = 0; dt < D / 8; dt += 2) {
+          uint32_t vb[4];
+          ak::ldsm4t(vb, vt + (kk * 16 + (lane / 8) % 2 * 8 + lane % 8) * LD + (dt + lane / 16) * 8);
+          ak::mma_bf16(o[mq][dt], ph, vb[0], vb[1]);
+          ak::mma_bf16(o[mq][dt + 1], ph, vb[2], vb[3]);
+          ak::mma_bf16(o[mq][dt], pl, vb[0], vb[1]);
+          ak::mma_bf16(o[mq][dt + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
   }
+  ak::cp_wait<0>();
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                       ((size_t)b * a.H + h) * a.Sq * D;
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = wr0 + 16 * mq + g + 8 * e;
+      if (r >= a.Sq) continue;
+      const float li = l[mq][e] == 0.f ? 1.f : 1.f / l[mq][e];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * D + dt * 8 + 2 * t) =
+            ak::pack_f32_bf16(o[mq][dt][2 * e] * li, o[mq][dt][2 * e + 1] * li);
+    }
 }
 
 // ---------------------------------------------------------------- float32
@@ -359,15 +474,30 @@ __global__ void __launch_bounds__(FTHREADS) flash_f32(Args a) {
   }
 }
 
+template <int D, int MQ>
+cudaError_t launch_bf16(const Args& a, int B, int hpb, cudaStream_t stream) {
+  constexpr int smem = flash_smem<D, MQ>();
+  const cudaError_t e = ak::allow_smem<flash_bf16<D, MQ>>(smem);
+  if (e != cudaSuccess) return e;
+  const int bq = block_rows(MQ) / hpb;
+  dim3 grid(B * a.Hkv * (a.H / a.Hkv / hpb), (a.Sq + bq - 1) / bq);
+  flash_bf16<D, MQ><<<grid, FW * 32, smem, stream>>>(a, hpb);
+  return cudaGetLastError();
+}
+
 template <int D>
-cudaError_t launch(const Args& a, int BH, int bf16, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int B, int bf16, cudaStream_t stream) {
   if (bf16) {
-    dim3 grid(BH, (a.Sq + BQ - 1) / BQ);
-    flash_bf16<D><<<grid, WARPS * 32, 0, stream>>>(a);
-  } else {
-    dim3 grid(BH, (a.Sq + FQ - 1) / FQ);
-    flash_f32<D><<<grid, FTHREADS, 0, stream>>>(a);
+    // two query heads a block where a kv head serves an even number; two
+    // row tiles a warp unless that leaves fewer than two blocks an SM
+    const int R = a.H / a.Hkv, hpb = R % 2 == 0 ? 2 : 1;
+    const int bq = block_rows(2) / hpb;
+    const long long blocks = (long long)B * a.Hkv * (R / hpb) * ((a.Sq + bq - 1) / bq);
+    return blocks >= 2 * ak::sm_count() ? launch_bf16<D, 2>(a, B, hpb, stream)
+                                     : launch_bf16<D, 1>(a, B, hpb, stream);
   }
+  dim3 grid(B * a.H, (a.Sq + FQ - 1) / FQ);
+  flash_f32<D><<<grid, FTHREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -385,9 +515,9 @@ extern "C" int ak_flash_attention(const void* q, const void* k, const void* v,
          out, H, Hkv, Sq, Sk, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(a, B * H, bf16, s);
-    case 64: return launch<64>(a, B * H, bf16, s);
-    case 128: return launch<128>(a, B * H, bf16, s);
+    case 32: return launch<32>(a, B, bf16, s);
+    case 64: return launch<64>(a, B, bf16, s);
+    case 128: return launch<128>(a, B, bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }

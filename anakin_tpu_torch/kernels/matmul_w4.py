@@ -5,8 +5,9 @@
     v2: W[k, n] = cast_to_x_dtype(float(int4[k, n]) * cast_to_x_dtype(scales))
     out = x @ W as [M, N] float32
 
-x [M, K] bf16 or float32, packed [K/2, N] int8 and scales [K/G, N] float32
-in the layout of `quant.quantize._w4_group_quantize`: in each group of G
+x [M, K] bf16 or float32, packed [K/2, N] int8 and scales [K/G, N]
+float32 or bf16 (read as they are handed over; widening bf16 is exact) in
+the layout of `quant.quantize._w4_group_quantize`: in each group of G
 rows, packed row r holds row r in its low nibble and row r + G/2 in its
 high nibble.  The epilogue (bias, residual, activation) stays with the
 caller, as in the JAX package.
@@ -19,10 +20,10 @@ package runs v1 for any variant name but "v2"; the port raises on an
 unknown name.
 
 On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
-`csrc/matmul_w4.cu` (v2 is its `V2` instantiation; `matmul_w4.launches`
-counts v1's launches, `matmul_w4.launches_v2` v2's); on a CPU tensor it
-runs `matmul_w4_plain`.  The two agree up to the order of the float32
-sums.
+`csrc/matmul_w4.cu` (v1 and v2 share its routes and differ only in the
+dequant; `matmul_w4.launches` counts v1's launches, `matmul_w4.launches_v2`
+v2's); on a CPU tensor it runs `matmul_w4_plain`.  The two agree up to the
+order of the float32 sums.
 """
 
 from __future__ import annotations
@@ -91,9 +92,12 @@ def _check(x, packed, scales, group, variant):
     if group <= 0 or group % 2 or K % group or tuple(scales.shape) != (K // group, N):
         raise ValueError(f"matmul_w4: K {K}, group {group}, scales "
                          f"{tuple(scales.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or packed.dtype != torch.int8:
-        raise TypeError(f"matmul_w4 takes float32/bf16 x and int8 packed "
-                        f"weights, got {x.dtype}, {packed.dtype}")
+    floats = (torch.float32, torch.bfloat16)
+    if x.dtype not in floats or scales.dtype not in floats \
+            or packed.dtype != torch.int8:
+        raise TypeError(f"matmul_w4 takes float32/bf16 x and scales and int8 "
+                        f"packed weights, got {x.dtype}, {scales.dtype}, "
+                        f"{packed.dtype}")
     if packed.device != x.device or scales.device != x.device:
         raise ValueError("matmul_w4 operands on different devices")
 
@@ -124,10 +128,11 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
     if x.data_ptr() % 16:  # the kernel reads x in 32-bit pairs
         x = x.clone()
     packed = packed.contiguous()
-    scales = scales.to(torch.float32).contiguous()
+    scales = scales.contiguous()
     lib = _lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    splits = lib.ak_matmul_w4_splits(M, N, K, group, bf16)
+    dtypes = (int(x.dtype == torch.bfloat16)
+              | 2 * int(scales.dtype == torch.bfloat16))
+    splits = lib.ak_matmul_w4_splits(M, N, K, group, dtypes)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
@@ -136,7 +141,7 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
         rc = lib.ak_matmul_w4(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
             ctypes.c_void_p(scales.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(None if ws is None else ws.data_ptr()), bf16,
+            ctypes.c_void_p(None if ws is None else ws.data_ptr()), dtypes,
             int(variant == "v2"), M, N, K, group, splits,
             ctypes.c_void_p(stream))
     if rc != 0:

@@ -219,8 +219,7 @@ def dense_w4(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     in float32."""
     x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
     v2 = node.attr("impl") == "pallas" and node.attr("variant") == "v2"
-    y = matmul_w4(xf, w_q, w_scale.to(torch.float32),
-                  group=int(node.attr("w4_group")),
+    y = matmul_w4(xf, w_q, w_scale, group=int(node.attr("w4_group")),
                   variant="v2" if v2 else "v1")
     y = _epilogue(node, y, bias, residual)
     return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]

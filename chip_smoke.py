@@ -42,9 +42,14 @@ Phases:
               ms per token step, tokens/s, one profiled step;
   7. kernels  flash_attention and matmul_w4 against their plain versions on
               the card at every distinct shape of paths A and B, plus a
-              ragged S = 300 with segment ids, S = 2048, ragged and
-              prefill-sized M, and float32 inputs; tolerances as each
-              kernel's source states them; each timed beside its plain
+              ragged S = 300 with segment ids, S = 2048, float32 inputs,
+              and the bf16 kernel's other paths (one, two and four query
+              heads per kv head, an odd group, D = 64 and 32, S = 128 k + 1,
+              no causal mask); matmul_w4 with bf16 scales (as the net hands
+              them over) and float32 ones, M = 1, 5, 16 (the edges of the
+              M <= 16 route) and 4096, N = 1003 (the byte-by-byte path), K
+              = G = 128 (one group, one split), float32 x; tolerances as
+              each kernel's source states them; each timed beside its plain
               version, its bound and a library call
               (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`);
   8. cpu/gpu  the LLM at full width and 2 layers, batch 2, 512-token prompt,
@@ -87,10 +92,11 @@ Phases:
               largest, greedy tokens equal wherever the top-2 gap exceeds it;
  13. kernel   matmul_w4 v2 against its plain version at the three path
               shapes (scales in bf16, as the net hands them over), float32
-              x, a prefill-sized M, and float32 scales with bf16 x (where
-              v2's dequantized weights differ from v1's; the count is
-              printed); tolerance as phase 7; timed beside its bound, its
-              plain version, v1 on the same inputs and
+              x, a prefill-sized M, float32 scales with bf16 x (where v2's
+              dequantized weights differ from v1's; the count is printed),
+              and phase 7's edges of the M <= 16 route (M = 1 and 16, N =
+              1003, K = G = 128); tolerance as phase 7; timed beside its
+              bound, its plain version, v1 on the same inputs and
               `torch._weight_int4pack_mm`;
  14. bottleneck the 12 identity blocks of phase 2's ResNet-50 b128 net (2/3/5/2
               over the stages: 1x1 relu -> 3x3 relu -> 1x1 + the block's
@@ -109,7 +115,9 @@ Phases:
               call).
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
-its last line `{"ok": true, "device": {...}}`.  Any failed check raises and
+its last line `{"ok": true, "device": {...}}`.  `--kernels-only` runs phases
+1, 7 and 13 alone (no main path, so neither of those lines) and writes
+`build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
 """
@@ -820,10 +828,10 @@ def _int4pack_yardstick(x, packed, scales, group):
 
 def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     """matmul_w4 (`variant` v1 or v2) against matmul_w4_plain on the card;
-    `bf16_scales` rounds the scales to bf16 first, as a bf16 net hands them
-    over.  Tolerance: the two sum the same float32 products in another
-    order, and any order is within K * 2^-24 * (|x| @ |W|) of the exact
-    sum, so |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
+    `bf16_scales` hands the scales over in bf16, as a bf16 net does.
+    Tolerance: the two sum the same float32 products in another order,
+    and any order is within K * 2^-24 * (|x| @ |W|) of the exact sum, so
+    |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
     same inputs and counts the dequantized weights where the two differ."""
     from anakin_tpu_torch.kernels.matmul_w4 import (matmul_w4, matmul_w4_plain,
                                                     unpack_w4, unpack_w4_v2)
@@ -834,7 +842,7 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
         rng.normal(0.0, K ** -0.5, (K, N)).astype(np.float32), G)
     packed, scales = torch.from_numpy(p_np).cuda(), torch.from_numpy(s_np).cuda()
     if bf16_scales:
-        scales = scales.to(torch.bfloat16).float()
+        scales = scales.to(torch.bfloat16)
     x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
     launches = matmul_w4.launches, matmul_w4.launches_v2
     got = matmul_w4(x, packed, scales, group=g, variant=variant)
@@ -872,7 +880,8 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
                                                      for _ in range(n_copies)]),
                              iters=2 * n_copies)
     xb = x.element_size()
-    nbytes = K // 2 * N + (K // g) * N * 4 + M * K * xb + M * N * 4
+    nbytes = (K // 2 * N + (K // g) * N * scales.element_size() + M * K * xb
+              + M * N * 4)
     ops = 2 * M * N * K
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
@@ -894,37 +903,65 @@ def llm_kernels(report, cfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     B, H, Hkv, D = LLM_BATCH, cfg.heads, cfg.kv_heads, cfg.head_dim
-    flash_cases = [  # (B, H, Hkv, S, dtype, causal, lengths, calls per generate)
-        (B, H, Hkv, PROMPT, torch.bfloat16, True, None, cfg.layers),
-        (2, H, Hkv, 300, torch.bfloat16, True, [300, 173], 0),
-        (2, H, Hkv, 300, torch.float32, True, [300, 173], 0),
-        (B, H, Hkv, PROMPT, torch.float32, True, None, 0),
-        (B, H, Hkv, 2048, torch.bfloat16, True, None, 0),
+    flash_cases = [  # (B, H, Hkv, S, D, dtype, causal, lengths, calls per generate)
+        (B, H, Hkv, PROMPT, D, torch.bfloat16, True, None, cfg.layers),
+        (2, H, Hkv, 300, D, torch.bfloat16, True, [300, 173], 0),
+        (2, H, Hkv, 300, D, torch.float32, True, [300, 173], 0),
+        (B, H, Hkv, PROMPT, D, torch.float32, True, None, 0),
+        (B, H, Hkv, 2048, D, torch.bfloat16, True, None, 0),
+        # the bf16 kernel's other paths: one query head per kv head (128-row
+        # blocks of one head), four per kv head, an odd group, other head
+        # dims, S = 128 k + 1 (a one-row last q tile and kv tile), no causal
+        # mask, segment ids; at b8 with two row tiles a warp, at b2 with one
+        # (the grid would hold fewer than two blocks an SM)
+        (B, H, H, PROMPT, D, torch.bfloat16, True, None, 0),
+        (B, H, 4, PROMPT, D, torch.bfloat16, True, None, 0),
+        (B, H, Hkv, PROMPT, 64, torch.bfloat16, True, None, 0),
+        (B, H, Hkv, 257, D, torch.bfloat16, False, None, 0),
+        (B, H, Hkv, PROMPT, D, torch.bfloat16, True,
+         [512, 300, 511, 64, 1, 257, 448, 200], 0),
+        (2, H, H, PROMPT, D, torch.bfloat16, True, None, 0),
+        (2, 6, 2, 129, 32, torch.bfloat16, True, None, 0),
+        (2, H, Hkv, 385, D, torch.bfloat16, True, None, 0),
     ]
-    w4_cases = [  # (M, K, N, dtype, calls per 32 steps)
-        (B, E, F_, torch.bfloat16, cfg.layers * NEW),
-        (B, F_, E, torch.bfloat16, cfg.layers * NEW),
-        (B, E, cfg.vocab, torch.bfloat16, NEW),
-        (5, E, F_, torch.bfloat16, 0),
-        (4096, E, F_, torch.bfloat16, 0),
-        (B, F_, E, torch.float32, 0),
-        (5, E, F_, torch.float32, 0),
-        (4096, E, F_, torch.float32, 0),
+    bf16, f32 = torch.bfloat16, torch.float32
+    w4_cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
+        # the path: the bf16 net hands its scales over in bf16
+        (B, E, F_, 128, bf16, True, cfg.layers * NEW),
+        (B, F_, E, 128, bf16, True, cfg.layers * NEW),
+        (B, E, cfg.vocab, 128, bf16, True, NEW),
+        # the same with float32 scales
+        (B, E, F_, 128, bf16, False, 0),
+        (B, F_, E, 128, bf16, False, 0),
+        (B, E, cfg.vocab, 128, bf16, False, 0),
+        # the edges of the M <= 16 route: one row, two n8 tiles, a ragged M;
+        # N not a multiple of 16 (the byte-by-byte path); one group, one split
+        (1, E, F_, 128, bf16, True, 0),
+        (16, E, F_, 128, bf16, True, 0),
+        (16, E, F_, 128, bf16, False, 0),
+        (5, E, F_, 128, bf16, False, 0),
+        (B, E, 1003, 128, bf16, False, 0),
+        (B, 128, F_, 128, bf16, True, 0),
+        (4096, E, F_, 128, bf16, False, 0),
+        (B, F_, E, 128, f32, False, 0),
+        (5, E, F_, 128, f32, True, 0),
+        (4096, E, F_, 128, f32, False, 0),
     ]
     results = []
-    for b, h, hkv, s, dt, causal, lens, calls in flash_cases:
-        r = check_flash(b, h, hkv, s, D, dt, causal, lens, gen, calls)
+    for b, h, hkv, s, d, dt, causal, lens, calls in flash_cases:
+        r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls)
         results.append(r)
         log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
             f" lengths={lens} x{calls} err={r['max_abs_err']:.3g} ok={r['ok']} "
             f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})")
-    for m, k, n, dt, calls in w4_cases:
-        r = check_w4(m, k, n, 128, dt, gen, calls)
+    for m, k, n, grp, dt, bs, calls in w4_cases:
+        r = check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs)
         results.append(r)
         lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
-        log(f"[kernel] matmul_w4 {m}x{k}->{n} {r['dtype']} x{calls} "
+        log(f"[kernel] matmul_w4 {m}x{k}->{n} {r['dtype']} scales "
+            f"{'bf16' if bs else 'float32'} x{calls} "
             f"err={r['max_abs_err']:.3g} ({r['max_rel_to_mag']:.2g} of |x|@|W|) "
             f"ok={r['ok']} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"int4pack_mm={lib} dequantized-bf16-matmul="
@@ -943,17 +980,22 @@ def w4_v2_kernels(report, cfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (M, K, N, dtype, scales in bf16, calls per 32 steps)
-        (B, E, F_, bf16, True, cfg.layers * NEW),
-        (B, F_, E, bf16, True, cfg.layers * NEW),
-        (B, E, cfg.vocab, bf16, True, NEW),
-        (B, F_, E, f32, False, 0),
-        (4096, E, F_, bf16, True, 0),
-        (B, E, F_, bf16, False, 0),
+    cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
+        (B, E, F_, 128, bf16, True, cfg.layers * NEW),
+        (B, F_, E, 128, bf16, True, cfg.layers * NEW),
+        (B, E, cfg.vocab, 128, bf16, True, NEW),
+        (B, F_, E, 128, f32, False, 0),
+        (4096, E, F_, 128, bf16, True, 0),
+        (B, E, F_, 128, bf16, False, 0),
+        # the edges of the M <= 16 route, as in phase 7
+        (1, E, F_, 128, bf16, True, 0),
+        (16, E, F_, 128, bf16, True, 0),
+        (B, E, 1003, 128, bf16, True, 0),
+        (B, 128, F_, 128, bf16, True, 0),
     ]
     results = []
-    for m, k, n, dt, bs, calls in cases:
-        r = check_w4(m, k, n, 128, dt, gen, calls, variant="v2", bf16_scales=bs)
+    for m, k, n, grp, dt, bs, calls in cases:
+        r = check_w4(m, k, n, grp, dt, gen, calls, variant="v2", bf16_scales=bs)
         results.append(r)
         lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -1608,7 +1650,15 @@ def bottleneck_phase(report, card, resnet):
     return results, counts["bottleneck_int8"]
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1, 7 and 13 only: build, then flash_attention "
+                         "and matmul_w4 v1/v2 against their plain versions "
+                         "(no main path, so no result line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
         return 1
@@ -1632,6 +1682,16 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+
+    if args.kernels_only:
+        cfg = TransformerConfig(**LLM_CFG)
+        llm_kernels(report, cfg)
+        w4_v2_kernels(report, cfg)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke_kernels.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        log(f"[time] kernel phases done at {time.perf_counter() - t_start:.0f} s")
+        return 0
 
     # ------------------------------------------------------- 2-4. ResNet
     results, counts, resnet = resnet_phases(report, card)
@@ -1690,4 +1750,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

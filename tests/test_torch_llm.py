@@ -289,6 +289,25 @@ def test_matmul_w4_v2_dequant_against_v1(rng, case):
     assert torch.equal(w2, rounded_first.float())
 
 
+@pytest.mark.parametrize("variant", ["v1", "v2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_w4_takes_bf16_scales(rng, variant, dtype):
+    """bf16 scales, as a bf16 net hands them over, give exactly what their
+    float32 widening gives: the wrapper and the kernel read either dtype and
+    widen in registers, so `dense_w4` needs no cast."""
+    from anakin_tpu.quant.quantize import _w4_group_quantize
+
+    packed, scale, g = _w4_group_quantize(
+        rng.normal(size=(256, 384)).astype(np.float32), 128)
+    x = _t(rng.normal(size=(8, 256)).astype(np.float32), getattr(torch, dtype))
+    s16 = _t(scale).to(torch.bfloat16)
+    got = matmul_w4(x, _t(packed), s16, group=g, variant=variant)
+    want = matmul_w4(x, _t(packed), s16.float(), group=g, variant=variant)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    with pytest.raises(TypeError, match="scales"):
+        matmul_w4(x, _t(packed), s16.half(), group=g, variant=variant)
+
+
 def test_matmul_w4_refuses_v2_and_other_devices():
     """An unknown variant raises (the JAX package would quietly run v1 for
     it); a device that is neither CPU nor CUDA raises in both LLM wrappers,
@@ -359,14 +378,16 @@ def test_dense_w4_routes_like_jax(rng, interpret, monkeypatch, precision,
     """dense_w4 takes matmul_w4 v2 exactly when the node says impl="pallas"
     and variant="v2", as the JAX op does (it reads `variant` on its Pallas
     route only), and matches the JAX op in each of the four combinations;
-    the scales are in the activation dtype, as a `Net` casts them."""
+    the scales are in the activation dtype, as a `Net` casts them, and
+    reach matmul_w4 in that dtype (no cast launch a call)."""
     from anakin_tpu.quant.quantize import _w4_group_quantize
     from anakin_tpu_torch.ops import quantized
 
-    variants = []
+    variants, scale_dtypes = [], []
 
     def spy(*args, variant, **kw):
         variants.append(variant)
+        scale_dtypes.append(args[2].dtype)
         return matmul_w4(*args, variant=variant, **kw)
 
     monkeypatch.setattr(quantized, "matmul_w4", spy)
@@ -379,6 +400,7 @@ def test_dense_w4_routes_like_jax(rng, interpret, monkeypatch, precision,
     got, want = _run_both("dense_w4", arrays, [jd, None, jd], [td, None, td],
                           w4_group=G, impl=impl, variant=variant)
     assert variants == ["v2" if (impl, variant) == ("pallas", "v2") else "v1"]
+    assert scale_dtypes == [td]
     assert got[0].dtype == td and tuple(got[0].shape) == (4, N)
     (_close_f32 if precision == "fp32" else _close_bf16)(got[0], want[0])
 
