@@ -8,19 +8,22 @@
 // products in VMEM.  Here the convolution is an implicit GEMM: the rows are
 // the N*H*W output pixels, the reduction runs over K = 9*C in (dy, dx, c)
 // order, and the A tile is gathered straight from the unpadded image, with
-// the one-pixel halo supplied as zeros by the loader's bounds checks.  No
+// the one-pixel halo supplied as zeros by the copies themselves.  No
 // padded copy and no im2col matrix is ever written to device memory.
 //
 // What bounds it on an H100: ResNet-50's 3x3 layers at batch 128 do
 // 2*N*H*W*9*C*O operations on N*H*W*(C+O) + 9*C*O bytes, several hundred
-// operations a byte, so they are limited by the int8 tensor-core rate.  This
-// first version issues mma.sync m16n8k32 from double-buffered shared memory
-// (int8_igemm.cuh); TMA, wgmma and a pipelined producer warp are the next
-// step.  The image rows are re-read once for each of the nine taps, mostly
-// from L2.
+// operations a byte, so they are limited by the int8 tensor-core rate.  The
+// core (int8_igemm.cuh) runs wgmma on a cp.async ring whose A pieces are
+// gathered per tap, the halo being the copy's zero fill; the weight is the
+// [O][9 C] copy prepared once per Net.  The image rows are re-read once for
+// each of the nine taps, mostly from L2.
 #include "int8_igemm.cuh"
 
-extern "C" int ak_conv3x3_int8(const void* x, const void* w, const void* scale,
+// w: the prepared weight [O][ldb], ldb >= 9 C (kernels/matmul_int8.py::
+// prepare_b of the HWIO weight).
+extern "C" int ak_conv3x3_int8(const void* x, const void* w, int ldb,
+                               const void* scale,
                                const void* bias, const void* res, int res_kind,
                                float res_scale, void* out, int out_kind,
                                int N, int H, int W, int C, int O, int act,
@@ -36,6 +39,7 @@ extern "C" int ak_conv3x3_int8(const void* x, const void* w, const void* scale,
   p.M = N * H * W;
   p.N = O;
   p.K = 9 * C;
+  p.ldb = ldb;
   p.H = H;
   p.W = W;
   p.C = C;
@@ -45,8 +49,5 @@ extern "C" int ak_conv3x3_int8(const void* x, const void* w, const void* scale,
   p.res_scale = res_scale;
   p.out_kind = out_kind;
   p.inv_out_scale = inv_out_scale;
-  const bool vec_a = C % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_b = O % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  return ak::launch_igemm<true>(p, vec_a, vec_b,
-                                static_cast<cudaStream_t>(stream));
+  return ak::launch_igemm<true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -14,6 +14,9 @@
 // four parity planes, because Mosaic has no strided int8 loads and no int8
 // rotates.  None of that is needed here: the halo is a bounds check, the
 // stride is index arithmetic, and no padded or parity-split copy is made.
+// Any H and W are taken at either stride, odd ones at stride 2 included
+// (Ho = (H - 1) / 2 + 1; the last row and column's taps past the image are
+// halo), as the JAX package's default XLA route computes them.
 //
 // What bounds it on an H100: 18 operations per output element against at
 // least 2 bytes (one int8 read of x, one int8 write of y, at stride 1), so

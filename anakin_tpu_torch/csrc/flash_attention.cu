@@ -10,7 +10,9 @@
 // q [B, H, Sq, D], k and v [B, Hkv, Sk, D] with H a multiple of Hkv (query
 // head h reads kv head h / (H / Hkv), so the grouped heads are never copied
 // H / Hkv times), segment ids [B, Sq] and [B, Sk] int32 or null, all
-// contiguous; bf16 or float32.
+// contiguous; bf16 or float32.  Head dims D: 32, 64, 80, 96, 128 and 256
+// in bf16 (256 with one 16-row tile a warp and 32-key tiles, for
+// registers), the same but 256 in float32.
 //
 // Replaces the TPU kernel anakin_tpu/kernels/flash_attention.py::
 // flash_attention, whose grid walks (batch * head, q tile, kv tile) with the
@@ -117,16 +119,20 @@ __device__ __forceinline__ float mask_score(const Args& a, float s, int row,
 // ---------------------------------------------------------------- bf16
 constexpr int FW = 4;             // warps per block
 constexpr int FSTAGES = 2;        // kv tiles in the ring
-// MQ: 16-row tiles of q per warp (2, or 1 where the grid would be short);
-// keys per kv tile: 32 with two row tiles, 64 with one (registers)
-__host__ __device__ constexpr int kv_block(int mq) { return mq == 2 ? 32 : 64; }
+// MQ: 16-row tiles of q per warp (2, or 1 where the grid would be short,
+// and always for D = 256); keys per kv tile: 32 with two row tiles or D =
+// 256, 64 otherwise (registers: D = 256 holds a 16 x 256 float32
+// accumulator a warp)
+__host__ __device__ constexpr int kv_block(int d, int mq) {
+  return mq == 2 || d > 128 ? 32 : 64;
+}
 // query rows per block, over 1 or 2 heads
 __host__ __device__ constexpr int block_rows(int mq) { return 16 * mq * FW; }
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, int MQ>
 constexpr int flash_smem() {
-  return FSTAGES * (2 * kv_block(MQ) * (D + 8) * 2 + kv_block(MQ) * 4) +
+  return FSTAGES * (2 * kv_block(D, MQ) * (D + 8) * 2 + kv_block(D, MQ) * 4) +
          FW * 16 * MQ * (D + 8) * 2;
 }
 
@@ -145,7 +151,7 @@ template <int D, int MQ>
 __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
   constexpr int LD = D + 8;  // bf16 row stride: 16 bytes of padding
   constexpr int WR = 16 * MQ;  // query rows per warp
-  constexpr int FBK = kv_block(MQ);
+  constexpr int FBK = kv_block(D, MQ);
   extern __shared__ __align__(16) uint8_t smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);   // [FSTAGES][FBK][LD]
   __nv_bfloat16* vs = ks + FSTAGES * FBK * LD;
@@ -224,7 +230,9 @@ __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
 
     // S = q k^T for this warp's rows and the tile's keys; ldmatrix
     // matrices: K (keys 8nt.., d 16kk..), (.., d 16kk+8..), the same at
-    // kk+1; q (rows 16mq.., d 16kk..) x4 as one A fragment
+    // kk+1; q (rows 16mq.., d 16kk..) x4 as one A fragment.  Where D / 16
+    // is odd (D = 80) the last step has no kk+1: its K matrices 2-3 repeat
+    // 0-1 and go unused.
     float s[MQ][FBK / 8][4];
 #pragma unroll
     for (int mq = 0; mq < MQ; ++mq)
@@ -232,20 +240,23 @@ __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
       for (int nt = 0; nt < FBK / 8; ++nt) s[mq][nt][0] = s[mq][nt][1] = s[mq][nt][2] = s[mq][nt][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; kk += 2) {
+      const bool pair = kk + 1 < D / 16;
       uint32_t qa[MQ][2][4];
 #pragma unroll
       for (int mq = 0; mq < MQ; ++mq)
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          ak::ldsm4(qa[mq][c], qw + (16 * mq + lane % 16) * LD + (kk + c) * 16 + lane / 16 * 8);
+          if (c == 0 || pair)
+            ak::ldsm4(qa[mq][c], qw + (16 * mq + lane % 16) * LD + (kk + c) * 16 + lane / 16 * 8);
 #pragma unroll
       for (int nt = 0; nt < FBK / 8; ++nt) {
         uint32_t kb[4];
-        ak::ldsm4(kb, kt + (nt * 8 + lane % 8) * LD + (kk + lane / 16) * 16 + (lane / 8) % 2 * 8);
+        ak::ldsm4(kb, kt + (nt * 8 + lane % 8) * LD + (kk + (pair ? lane / 16 : 0)) * 16 +
+                          (lane / 8) % 2 * 8);
 #pragma unroll
         for (int mq = 0; mq < MQ; ++mq) {
           ak::mma_bf16(s[mq][nt], qa[mq][0], kb[0], kb[1]);
-          ak::mma_bf16(s[mq][nt], qa[mq][1], kb[2], kb[3]);
+          if (pair) ak::mma_bf16(s[mq][nt], qa[mq][1], kb[2], kb[3]);
         }
       }
     }
@@ -487,7 +498,11 @@ cudaError_t launch_bf16(const Args& a, int B, int hpb, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch(const Args& a, int B, int bf16, cudaStream_t stream) {
-  if (bf16) {
+  if constexpr (D > 128) {  // bf16 only, one row tile a warp
+    if (!bf16) return cudaErrorInvalidValue;
+    const int hpb = (a.H / a.Hkv) % 2 == 0 ? 2 : 1;
+    return launch_bf16<D, 1>(a, B, hpb, stream);
+  } else if (bf16) {
     // two query heads a block where a kv head serves an even number; two
     // row tiles a warp unless that leaves fewer than two blocks an SM
     const int R = a.H / a.Hkv, hpb = R % 2 == 0 ? 2 : 1;
@@ -496,8 +511,10 @@ cudaError_t launch(const Args& a, int B, int bf16, cudaStream_t stream) {
     return blocks >= 2 * ak::sm_count() ? launch_bf16<D, 2>(a, B, hpb, stream)
                                      : launch_bf16<D, 1>(a, B, hpb, stream);
   }
-  dim3 grid(B * a.H, (a.Sq + FQ - 1) / FQ);
-  flash_f32<D><<<grid, FTHREADS, 0, stream>>>(a);
+  if constexpr (D <= 128) {
+    dim3 grid(B * a.H, (a.Sq + FQ - 1) / FQ);
+    flash_f32<D><<<grid, FTHREADS, 0, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -517,7 +534,10 @@ extern "C" int ak_flash_attention(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return launch<32>(a, B, bf16, s);
     case 64: return launch<64>(a, B, bf16, s);
+    case 80: return launch<80>(a, B, bf16, s);
+    case 96: return launch<96>(a, B, bf16, s);
     case 128: return launch<128>(a, B, bf16, s);
+    case 256: return launch<256>(a, B, bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -64,8 +64,20 @@
 // shared memory, so each unpacked tile serves 64 rows of x.  float32 x
 // (w4_f32): fp32 FMA (no TF32), one thread per column and 8 rows per block.
 // These two write float32 partials per split to a workspace that sum_splits
-// adds in a fixed order.  Against the plain version every route differs
-// only by the order of the float32 sums.
+// adds in a fixed order.
+//
+// Groups that are not a multiple of 64 (w4_rows): the quantizer writes any
+// even G that divides K (G = 32, or G = K = 96), and then a 32-row chunk of
+// packed rows can straddle groups.  This route indexes the group, and so
+// the scale row and the low / high k of x, per packed row: one thread per
+// column and 8 rows of x per block, x staged in shared memory per chunk in
+// float32, each weight dequantized as unpack_w4 / unpack_w4_v2 forms it
+// (rounded to x's dtype), fp32 FMA, K split over blocks through the
+// workspace.  A simple route, not a fast one; the groups the models use
+// (multiples of 64) keep the routes above.
+//
+// Against the plain version every route differs only by the order of the
+// float32 sums.
 //
 // Variant v2 (V2 = true) replaces the same TPU kernel's variant v2
 // (`_make_kernel_v2`), which dequantizes in x's dtype T:
@@ -591,6 +603,71 @@ __global__ void __launch_bounds__(FTHREADS) w4_f32(Args a) {
   }
 }
 
+// ------------------------------------------- any even G (G % 64 != 0)
+constexpr int RM = 8, RTHREADS = 128, RCH = 32;  // x rows, columns, packed rows a chunk
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// packed rows [r0, r1) of split s of `splits`
+__device__ __forceinline__ void row_range(int k2, int s, int splits, int& r0, int& r1) {
+  r0 = (int)((long long)s * k2 / splits);
+  r1 = (int)((long long)(s + 1) * k2 / splits);
+}
+
+template <bool V2, bool XBF16>
+__global__ void __launch_bounds__(RTHREADS) w4_rows(Args a) {
+  __shared__ float xs[RM][2 * RCH];  // x at the chunk's low-nibble k, then high
+  const int n = blockIdx.x * RTHREADS + threadIdx.x;
+  const int m0 = blockIdx.y * RM;
+  const int half = a.G / 2;
+  int r0, r1;
+  row_range(a.K / 2, blockIdx.z, a.splits, r0, r1);
+
+  float acc[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) acc[i] = 0.f;
+  for (int c0 = r0; c0 < r1; c0 += RCH) {
+    for (int i = threadIdx.x; i < RM * 2 * RCH; i += RTHREADS) {
+      const int m = i / (2 * RCH), j = i % (2 * RCH), pr = c0 + j % RCH;
+      float v = 0.f;
+      if (m0 + m < a.M && pr < r1) {
+        const int grp = pr / half;
+        const size_t k = (size_t)grp * a.G + (pr - grp * half) + (j >= RCH ? half : 0);
+        const size_t xi = (size_t)(m0 + m) * a.K + k;
+        v = XBF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[xi])
+                  : static_cast<const float*>(a.x)[xi];
+      }
+      xs[m][j] = v;
+    }
+    __syncthreads();
+    if (n < a.N) {
+      const int rows = min(RCH, r1 - c0);
+#pragma unroll 4
+      for (int j = 0; j < rows; ++j) {
+        const int pr = c0 + j;
+        float sc = load_scale(a, pr / half, n);
+        if (V2 && XBF16) sc = round_bf16(sc);  // v2 scales in x's dtype
+        const int p = a.packed[(size_t)pr * a.N + n];
+        float wl = w_lo<V2>(p, sc), wh = w_hi<V2>(p, sc);
+        if (XBF16) {
+          wl = round_bf16(wl);
+          wh = round_bf16(wh);
+        }
+#pragma unroll
+        for (int m = 0; m < RM; ++m)
+          acc[m] = fmaf(xs[m][RCH + j], wh, fmaf(xs[m][j], wl, acc[m]));
+      }
+    }
+    __syncthreads();
+  }
+  if (n < a.N) {
+    float* out = a.out + (size_t)blockIdx.z * a.M * a.N;
+    for (int m = 0; m < RM && m0 + m < a.M; ++m) out[(size_t)(m0 + m) * a.N + n] = acc[m];
+  }
+}
+
 // out[m, n] = sum over s of ws[s, m, n], s in order
 __global__ void sum_splits(const float* ws, float* out, int splits, size_t mn) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < mn;
@@ -632,6 +709,14 @@ cudaError_t launch_small(const Args& a, cudaStream_t st) {
 
 template <bool V2>
 cudaError_t launch(const Args& a, int bf16, cudaStream_t st) {
+  if (a.G % 64 != 0) {
+    dim3 grid((a.N + RTHREADS - 1) / RTHREADS, (a.M + RM - 1) / RM, a.splits);
+    if (bf16)
+      w4_rows<V2, true><<<grid, RTHREADS, 0, st>>>(a);
+    else
+      w4_rows<V2, false><<<grid, RTHREADS, 0, st>>>(a);
+    return cudaGetLastError();
+  }
   // v2's scale is rounded to bf16 before its product, so bf16x2
   // arithmetic is exact for it as for bf16 scales
   const bool fast = V2 || a.sbf16;
@@ -656,6 +741,13 @@ cudaError_t launch(const Args& a, int bf16, cudaStream_t st) {
 // a cluster's shared memory.  dtypes: bit 0 set for bf16 x.
 extern "C" int ak_matmul_w4_splits(int M, int N, int K, int G, int dtypes) {
   const int bf16 = dtypes & 1;
+  if (G % 64 != 0) {  // w4_rows: splits of whole 32-row chunks
+    const long long blocks =
+        (long long)((N + RTHREADS - 1) / RTHREADS) * ((M + RM - 1) / RM);
+    const int chunks = (K / 2 + RCH - 1) / RCH;
+    long long s = (8 * 132 + blocks - 1) / blocks;  // 8 blocks an SM
+    return (int)(s < 1 ? 1 : (s > chunks ? chunks : s));
+  }
   if (bf16 && M <= 16) return 1;
   const int bm = bf16 ? 16 * WM : FM;
   const int bn = bf16 ? BN : FTHREADS;
@@ -671,11 +763,11 @@ extern "C" int ak_matmul_w4(const void* x, const void* packed, const void* scale
                             void* out, void* workspace, int dtypes, int v2, int M,
                             int N, int K, int G, int splits, void* stream) {
   if (M == 0 || N == 0) return 0;
-  if (K <= 0 || G <= 0 || K % G != 0 || (G / 2) % CH != 0 || splits < 1 ||
+  if (K <= 0 || G <= 0 || G % 2 != 0 || K % G != 0 || splits < 1 ||
       (splits > 1 && workspace == nullptr))
     return cudaErrorInvalidValue;
   const int bf16 = dtypes & 1, sbf16 = (dtypes >> 1) & 1;
-  const bool small = bf16 && M <= 16;
+  const bool small = bf16 && M <= 16 && G % 64 == 0;
   if (small && splits != 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(packed) |

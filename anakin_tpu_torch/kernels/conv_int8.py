@@ -12,21 +12,23 @@ activation is relu, relu6 or leaky_relu; sigmoid and tanh are refused.
 On a CUDA tensor `conv3x3_int8` launches the implicit-GEMM Hopper kernel in
 `csrc/conv3x3_int8.cu` (its header says what bounds it and what the design
 does about that); on a CPU tensor it runs `conv3x3_int8_plain`.  The
-epilogue and its numerics are those of `matmul_int8`.
+epilogue and its numerics are those of `matmul_int8`, and so is the weight:
+`w` may be `prepare_b(w)` (the [O][9 C] copy a `Net` makes once), or the
+HWIO weight itself, which the CUDA path then prepares for that one call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .matmul_int8 import (_EPILOGUE_ARGTYPES, _TAIL_ARGTYPES, _int_matmul,
-                          check_epilogue, epilogue_launch_args,
-                          epilogue_plain, scale_row)
+from .matmul_int8 import (_EPILOGUE_ARGTYPES, _TAIL_ARGTYPES, PreparedB,
+                          _int_matmul, as_prepared, check_epilogue,
+                          epilogue_launch_args, epilogue_plain, scale_row)
 
 __all__ = ["conv3x3_int8", "conv3x3_int8_plain"]
 
@@ -36,8 +38,9 @@ _CONV_ACTS = (None, "identity", "relu", "relu6", "leaky_relu")
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv3x3_int8")
     fn = lib.ak_conv3x3_int8
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + _EPILOGUE_ARGTYPES
-                   + [ctypes.c_int] * 5 + _TAIL_ARGTYPES)
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + _EPILOGUE_ARGTYPES + [ctypes.c_int] * 5
+                   + _TAIL_ARGTYPES)
     fn.restype = ctypes.c_int
     return lib
 
@@ -50,8 +53,11 @@ def conv3x3_int8_plain(x, w, w_scale, bias=None, residual=None, *,
                        residual_scale: Optional[float] = None) -> torch.Tensor:
     """`conv3x3_int8` in plain PyTorch: im2col in (dy, dx, c) order, then
     an exact integer product and the shared epilogue."""
+    if isinstance(w, PreparedB):
+        w.check()
+        w = w.kn()
     N, H, W, C = x.shape
-    O = w.shape[3]
+    O = w.shape[-1]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     cols = torch.cat([xp[:, dy:dy + H, dx:dx + W, :]
                       for dy in range(3) for dx in range(3)], dim=-1)
@@ -63,7 +69,8 @@ def conv3x3_int8_plain(x, w, w_scale, bias=None, residual=None, *,
     return y.reshape(N, H, W, O)
 
 
-def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+def conv3x3_int8(x: torch.Tensor, w: Union[torch.Tensor, PreparedB],
+                 w_scale: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
                  residual: Optional[torch.Tensor] = None, *,
                  in_scale: float, activation: Optional[str] = None,
@@ -72,16 +79,18 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                  residual_scale: Optional[float] = None) -> torch.Tensor:
     """Fused int8 3x3 s1 p1 conv.  Returns [N, H, W, O] int8 when
     `out_scale` is given, else `out_dtype`."""
-    if x.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"conv3x3_int8 takes int8 operands, got {x.dtype}, {w.dtype}")
-    if x.dim() != 4 or w.shape[:3] != (3, 3, x.shape[3]) or w.dim() != 4:
-        raise ValueError(f"conv3x3_int8 shapes {tuple(x.shape)} * {tuple(w.shape)}")
-    if w.device != x.device:
+    wt = w.t if isinstance(w, PreparedB) else w
+    if x.dtype != torch.int8 or wt.dtype != torch.int8:
+        raise TypeError(f"conv3x3_int8 takes int8 operands, got {x.dtype}, {wt.dtype}")
+    shape = tuple(w.shape)
+    if x.dim() != 4 or len(shape) != 4 or shape[:3] != (3, 3, x.shape[3]):
+        raise ValueError(f"conv3x3_int8 shapes {tuple(x.shape)} * {shape}")
+    if wt.device != x.device:
         raise ValueError("conv3x3_int8 operands on different devices")
     if activation not in _CONV_ACTS:
         raise ValueError(f"unsupported epilogue act {activation!r}")
     N, H, W, C = x.shape
-    O = w.shape[3]
+    O = shape[3]
     check_epilogue(x.device, O, N * H * W, w_scale, bias, residual,
                    residual_scale, activation, out_scale, out_dtype)
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
@@ -89,8 +98,9 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
               residual_scale=residual_scale)
     if _build.runs_plain(x.device, "conv3x3_int8"):
         return conv3x3_int8_plain(x, w, w_scale, bias, residual, **kw)
-    if not (x.is_contiguous() and w.is_contiguous()):
+    if not x.is_contiguous():
         raise ValueError("conv3x3_int8 operands must be contiguous")
+    w = as_prepared(w)
     lib = _lib()
     with torch.cuda.device(x.device):
         out, args, tail, _keep = epilogue_launch_args(
@@ -98,8 +108,9 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
             act_alpha, out_scale, out_dtype, (N, H, W, O), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ak_conv3x3_int8(ctypes.c_void_p(x.data_ptr()),
-                                 ctypes.c_void_p(w.data_ptr()), *args,
-                                 N, H, W, C, O, *tail, ctypes.c_void_p(stream))
+                                 ctypes.c_void_p(w.t.data_ptr()), w.t.shape[1],
+                                 *args, N, H, W, C, O, *tail,
+                                 ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"conv3x3_int8 kernel launch failed: CUDA error {rc}")
     conv3x3_int8.launches += 1

@@ -9,8 +9,10 @@ multiplier 1, with the fused epilogue: the port of
           float32 / bfloat16 when there is no out_scale
 
 x is [N, H, W, C] int8, w is [3, 3, 1, C] int8; Ho = (H - 1) // s + 1.
-As on the TPU there is no residual, the activation is relu, relu6 or
-leaky_relu (sigmoid and tanh are refused), and stride 2 needs even H and W.
+As on the TPU there is no residual, and the activation is relu, relu6 or
+leaky_relu (sigmoid and tanh are refused).  Any H and W are taken at
+either stride: the Pallas kernel asserts even sizes at stride 2, but the
+JAX package's default route (XLA) computes odd ones, and so does this.
 
 On a CUDA tensor `depthwise3x3_int8` launches the Hopper kernel in
 `csrc/depthwise3x3_int8.cu` (its header says what bounds it and what the
@@ -88,9 +90,6 @@ def depthwise3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     if stride not in (1, 2):
         raise ValueError(f"depthwise3x3_int8 takes stride 1 or 2, not {stride}")
     N, H, W, C = x.shape
-    if stride == 2 and (H % 2 or W % 2):
-        raise ValueError(f"stride-2 depthwise3x3_int8 expects even H and W, "
-                         f"got {H}x{W}")
     if activation not in _DW_ACTS:
         raise ValueError(f"unsupported epilogue act {activation!r}")
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1

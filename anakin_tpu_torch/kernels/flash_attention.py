@@ -28,10 +28,23 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "mha_reference", "MASK_VALUE"]
+__all__ = ["flash_attention", "mha_reference", "MASK_VALUE", "head_dims",
+           "takes_head_dim"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_HEAD_DIMS = (32, 64, 128)
+# head dims the CUDA kernel is instantiated for; the float32 kernel keeps a
+# q, k and v tile in static shared memory, which 256 would overflow
+_HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 96, 128, 256),
+              torch.float32: (32, 64, 80, 96, 128)}
+
+
+def head_dims(dtype) -> tuple:
+    """The head dims the CUDA kernel takes for q of `dtype`."""
+    return _HEAD_DIMS.get(dtype, ())
+
+
+def takes_head_dim(D: int, dtype) -> bool:
+    return D in head_dims(dtype)
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -113,9 +126,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.runs_plain(q.device, "flash_attention"):
         return mha_reference(q, k, v, q_segment_ids, kv_segment_ids,
                              causal=causal, sm_scale=sm_scale)
-    if D not in _HEAD_DIMS:
+    if not takes_head_dim(D, q.dtype):
         raise ValueError(f"the CUDA flash_attention takes head dims "
-                         f"{_HEAD_DIMS}, got {D}")
+                         f"{head_dims(q.dtype)} for {q.dtype}, got {D}")
     # the kernel reads rows with 16-byte loads
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))

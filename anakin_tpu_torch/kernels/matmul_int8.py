@@ -12,6 +12,14 @@ are in that file's header); on a CPU tensor it runs `matmul_int8_plain`,
 the same arithmetic in plain PyTorch.  There is no fallback from one to the
 other.
 
+The kernel reads the weight as [N][K], K contiguous (int8 wgmma takes
+K-major operands only).  `prepare_b` makes that copy; a `Net` makes it once
+per weight when it is built and hands it to the op, so no step transposes a
+weight.  `b` may be the weight itself ([K, N], the JAX layout): the CUDA
+path then prepares it for that one call.  A prepared copy remembers its
+weight's version counter and refuses to run once the weight has changed in
+place.
+
 Numerics follow the Pallas kernel bit for bit: the scale row is
 `in_scale * w_scale` in float32, every epilogue step is a separately
 rounded float32 operation, the requant multiplies by the float32 reciprocal
@@ -24,18 +32,78 @@ the TPU kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["matmul_int8", "matmul_int8_plain", "epilogue_plain"]
+__all__ = ["matmul_int8", "matmul_int8_plain", "epilogue_plain", "PreparedB",
+           "prepare_b"]
 
 _ACTS = {None: 0, "identity": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
          "sigmoid": 4, "tanh": 5}
 _RES_KINDS = {torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
 _OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+class PreparedB(NamedTuple):
+    """An int8 weight as the int8 GEMM core reads it (made by `prepare_b`):
+    `t` is [N, ldb], K contiguous, zero from K to ldb (a multiple of 16);
+    `shape` is the weight's own shape, [K, N] or HWIO [kh, kw, C, O] with
+    K = kh * kw * C; `source` and `version` are the weight and its version
+    counter when the copy was made (None for an inference tensor, which
+    cannot change outside inference mode)."""
+
+    t: torch.Tensor
+    shape: Tuple[int, ...]
+    source: torch.Tensor
+    version: Optional[int]
+
+    @property
+    def k(self) -> int:
+        return math.prod(self.shape[:-1])
+
+    @property
+    def n(self) -> int:
+        return self.shape[-1]
+
+    def kn(self) -> torch.Tensor:
+        """The weight as [K, N] again (a view of `t`)."""
+        return self.t[:, :self.k].t()
+
+    def check(self) -> None:
+        if self.version is not None and self.source._version != self.version:
+            raise RuntimeError("an int8 weight changed in place after it was "
+                               "prepared; prepare it again (prepare_b)")
+
+
+def _version(w: torch.Tensor) -> Optional[int]:
+    return None if w.is_inference() else w._version
+
+
+def prepare_b(w: torch.Tensor) -> PreparedB:
+    """The [N, ldb] K-contiguous copy of an int8 weight [..., N] flattened
+    to [K, N]: one transpose, on the weight's device."""
+    if w.dtype != torch.int8:
+        raise TypeError(f"prepare_b takes an int8 weight, got {w.dtype}")
+    k, n = math.prod(w.shape[:-1]), w.shape[-1]
+    ldb = -(-k // 16) * 16
+    t = F.pad(w.reshape(k, n).t(), (0, ldb - k)).contiguous()
+    prepare_b.calls += 1
+    return PreparedB(t, tuple(w.shape), w, _version(w))
+
+
+prepare_b.calls = 0
+
+def as_prepared(b: Union[torch.Tensor, PreparedB]) -> PreparedB:
+    """`b` prepared: checked when it already is, else prepared now."""
+    if isinstance(b, PreparedB):
+        b.check()
+        return b
+    return prepare_b(b)
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,11 +200,24 @@ _TAIL_ARGTYPES = [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                   ctypes.c_void_p]
 
 
+def igemm_config(M: int, N: int, K: int) -> Tuple[int, int, int]:
+    """(block tile rows, block tile N width, K splits) that the card's
+    launch of an M x N x K product takes (the same for the 3x3 conv with
+    M = N H W and K = 9 C).  Needs the built kernel, so CUDA only."""
+    fn = _lib().ak_igemm_config
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = None
+    bm, bn, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    fn(M, N, K, ctypes.byref(bm), ctypes.byref(bn), ctypes.byref(splits))
+    return bm.value, bn.value, splits.value
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul_int8")
     fn = lib.ak_matmul_int8
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + _EPILOGUE_ARGTYPES
-                   + [ctypes.c_int] * 3 + _TAIL_ARGTYPES)
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + _EPILOGUE_ARGTYPES + [ctypes.c_int] * 3
+                   + _TAIL_ARGTYPES)
     fn.restype = ctypes.c_int
     return lib
 
@@ -147,31 +228,39 @@ def matmul_int8_plain(a, b, w_scale, bias=None, residual=None, *,
                       out_scale: Optional[float] = None,
                       out_dtype=torch.float32,
                       residual_scale: Optional[float] = None) -> torch.Tensor:
-    """`matmul_int8` in plain PyTorch, on any device."""
+    """`matmul_int8` in plain PyTorch, on any device; `b` [K, N] or
+    prepared."""
+    if isinstance(b, PreparedB):
+        b.check()
+        b = b.kn()
     res = None if residual is None else residual.reshape(a.shape[0], b.shape[1])
     return epilogue_plain(_int_matmul(a, b), scale_row(w_scale, in_scale),
                           bias, res, residual_scale, activation, act_alpha,
                           out_scale, out_dtype)
 
 
-def matmul_int8(a: torch.Tensor, b: torch.Tensor, w_scale: torch.Tensor,
+def matmul_int8(a: torch.Tensor, b: Union[torch.Tensor, PreparedB],
+                w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 residual: Optional[torch.Tensor] = None, *,
                 in_scale: float, activation: Optional[str] = None,
                 act_alpha: float = 0.0, out_scale: Optional[float] = None,
                 out_dtype=torch.float32,
                 residual_scale: Optional[float] = None) -> torch.Tensor:
-    """Fused int8 GEMM: a [M, K] int8, b [K, N] int8, w_scale [N], bias [N],
-    residual [M, N] (float, or int8 with `residual_scale`).  Returns [M, N]
-    int8 when `out_scale` is given, else `out_dtype`."""
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise TypeError(f"matmul_int8 takes int8 operands, got {a.dtype}, {b.dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"matmul_int8 shapes {tuple(a.shape)} x {tuple(b.shape)}")
-    if b.device != a.device:
+    """Fused int8 GEMM: a [M, K] int8, b [K, N] int8 (or `prepare_b` of
+    it), w_scale [N], bias [N], residual [M, N] (float, or int8 with
+    `residual_scale`).  Returns [M, N] int8 when `out_scale` is given, else
+    `out_dtype`."""
+    bt = b.t if isinstance(b, PreparedB) else b
+    if a.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError(f"matmul_int8 takes int8 operands, got {a.dtype}, {bt.dtype}")
+    kn = (b.k, b.n) if isinstance(b, PreparedB) else tuple(b.shape)
+    if a.dim() != 2 or len(kn) != 2 or a.shape[1] != kn[0]:
+        raise ValueError(f"matmul_int8 shapes {tuple(a.shape)} x {kn}")
+    if bt.device != a.device:
         raise ValueError("matmul_int8 operands on different devices")
     M, K = a.shape
-    N = b.shape[1]
+    N = kn[1]
     check_epilogue(a.device, N, M, w_scale, bias, residual, residual_scale,
                    activation, out_scale, out_dtype)
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
@@ -179,8 +268,9 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, w_scale: torch.Tensor,
               residual_scale=residual_scale)
     if _build.runs_plain(a.device, "matmul_int8"):
         return matmul_int8_plain(a, b, w_scale, bias, residual, **kw)
-    if not (a.is_contiguous() and b.is_contiguous()):
+    if not a.is_contiguous():
         raise ValueError("matmul_int8 operands must be contiguous")
+    b = as_prepared(b)
     lib = _lib()
     with torch.cuda.device(a.device):
         out, args, tail, _keep = epilogue_launch_args(
@@ -188,8 +278,9 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor, w_scale: torch.Tensor,
             act_alpha, out_scale, out_dtype, (M, N), a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.ak_matmul_int8(ctypes.c_void_p(a.data_ptr()),
-                                ctypes.c_void_p(b.data_ptr()), *args, M, N, K,
-                                *tail, ctypes.c_void_p(stream))
+                                ctypes.c_void_p(b.t.data_ptr()), b.t.shape[1],
+                                *args, M, N, K, *tail,
+                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"matmul_int8 kernel launch failed: CUDA error {rc}")
     matmul_int8.launches += 1

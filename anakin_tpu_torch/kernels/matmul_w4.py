@@ -23,7 +23,9 @@ On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
 `csrc/matmul_w4.cu` (v1 and v2 share its routes and differ only in the
 dequant; `matmul_w4.launches` counts v1's launches, `matmul_w4.launches_v2`
 v2's); on a CPU tensor it runs `matmul_w4_plain`.  The two agree up to the
-order of the float32 sums.
+order of the float32 sums.  Both take every group the quantizer writes:
+any even G that divides K (groups that are not a multiple of 64 take the
+kernel's simple per-row route).
 """
 
 from __future__ import annotations
@@ -119,9 +121,6 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
     _check(x, packed, scales, group, variant)
     if _build.runs_plain(x.device, "matmul_w4"):
         return matmul_w4_plain(x, packed, scales, group=group, variant=variant)
-    if (group // 2) % 32:
-        raise ValueError(f"the CUDA matmul_w4 takes groups that are multiples "
-                         f"of 64, got {group}")
     M, K = x.shape
     N = packed.shape[1]
     x = x.contiguous()

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention, mha_reference
+from .nn import full_fp32
 from .registry import register
 
 __all__ = ["apply_rope"]
@@ -56,7 +57,8 @@ def _project(x, w, heads, D):
     """x [B, S, E] @ w [E, heads*D] in float32 -> [B, heads, S, D] in x's
     dtype."""
     B, S, _ = x.shape
-    y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+    with full_fp32():
+        y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
     return y.reshape(B, S, heads, D).permute(0, 2, 1, 3).to(x.dtype)
 
 
@@ -65,7 +67,9 @@ def _out_project(o, wo, x):
     [B, S, E] in x's dtype."""
     B, H, S, D = o.shape
     of = o.to(x.dtype).to(torch.float32).permute(0, 2, 1, 3).reshape(B, S, H * D)
-    return torch.matmul(of, wo.to(x.dtype).to(torch.float32)).to(x.dtype)
+    with full_fp32():
+        y = torch.matmul(of, wo.to(x.dtype).to(torch.float32))
+    return y.to(x.dtype)
 
 
 def _heads(node, wq):
@@ -139,7 +143,9 @@ def mha_prefill(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     else:
         rep = H // Hkv
         qg = q.reshape(B, Hkv, rep, S, D).to(torch.float32)
-        s = torch.einsum("bgrsd,bgkd->bgrsk", qg, k.to(torch.float32)) / math.sqrt(D)
+        with full_fp32():
+            s = torch.einsum("bgrsd,bgkd->bgrsk", qg, k.to(torch.float32))
+        s = s / math.sqrt(D)
         t = torch.arange(S, device=x.device)
         if causal:
             s = torch.where(t[:, None] >= t[None, :], s, -1e30)
@@ -147,7 +153,8 @@ def mha_prefill(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
             ok = t[None] < lengths.to(torch.int64)[:, None]
             s = torch.where(ok[:, None, None, None, :], s, -1e30)
         p_att = torch.softmax(s, dim=-1)
-        o = torch.einsum("bgrsk,bgkd->bgrsd", p_att, v.to(torch.float32))
+        with full_fp32():
+            o = torch.einsum("bgrsk,bgkd->bgrsd", p_att, v.to(torch.float32))
         o = o.reshape(B, H, S, D)
     return [_out_project(o, wo, x), cache_k, cache_v]
 
@@ -212,10 +219,13 @@ def mha_decode(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     if kv_int8:
         k_read, v_read = k_read * ks, v_read * vs
     qg = q.reshape(B, Hkv, H // Hkv, D).to(torch.float32)
-    s = torch.einsum("bgrd,bgkd->bgrk", qg, k_read) / math.sqrt(D)
+    with full_fp32():
+        s = torch.einsum("bgrd,bgkd->bgrk", qg, k_read)
+    s = s / math.sqrt(D)
     t = torch.arange(Sr, device=x.device)[None]
     valid = t <= pos.to(torch.int64)[:, None]                        # [B, Sr]
     s = torch.where(valid[:, None, None, :], s, -1e30)
     p_att = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrk,bgkd->bgrd", p_att, v_read).reshape(B, H, 1, D)
+    with full_fp32():
+        o = torch.einsum("bgrk,bgkd->bgrd", p_att, v_read).reshape(B, H, 1, D)
     return [_out_project(o, wo, x), ck, cv]

@@ -5,11 +5,14 @@ Float convolution and dense are plain matrix work that the JAX package
 leaves to XLA, so here they go to `F.conv2d` / `torch.matmul`.  Both run in
 float32 whatever the activation dtype, as the JAX ops accumulate in float32
 (`preferred_element_type`) at "highest" precision: bf16 operands are widened
-(their products are exact in float32) and TF32 is kept off.
+(their products are exact in float32) and TF32 is kept off: every float32
+product of the port's ops runs inside `full_fp32()`, whatever precision the
+caller set for the process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -99,10 +102,21 @@ def _split_conv_inputs(node, xs):
     return x, w, bias, residual
 
 
-def _no_tf32():
+@contextlib.contextmanager
+def full_fp32():
+    """Float32 matmuls and cuDNN convolutions in full float32 inside the
+    block (TF32 off), whatever the caller set with
+    `torch.set_float32_matmul_precision` or `torch.backends.*.allow_tf32`;
+    the caller's settings come back on exit."""
+    prev = torch.get_float32_matmul_precision()
     cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def _requant(y: torch.Tensor, qs) -> torch.Tensor:
@@ -119,7 +133,7 @@ def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     x, w, bias, residual = _split_conv_inputs(node, xs)
     (pt, pb), (pl, pr) = conv_pads(node, x.shape[1:3], w.shape[:2])
     xt = F.pad(x.to(torch.float32).permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    with _no_tf32():
+    with full_fp32():
         y = F.conv2d(xt, w.to(torch.float32).permute(3, 2, 0, 1),
                      stride=pair(node.attr("strides", (1, 1))),
                      dilation=pair(node.attr("dilation", (1, 1))),
@@ -198,7 +212,8 @@ def dense(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     axis = int(node.attr("axis", 1))
     lead = tuple(x.shape[:axis])
     xf = x.reshape(math.prod(lead), -1)
-    y = torch.matmul(xf.to(torch.float32), w.to(torch.float32))
+    with full_fp32():
+        y = torch.matmul(xf.to(torch.float32), w.to(torch.float32))
     y = _epilogue(node, y, bias, residual).reshape(lead + (w.shape[-1],))
     qs = node.attr("quant_out_scale")
     if qs is not None:

@@ -17,7 +17,10 @@ through the port's int8 kernels, whatever the node's `impl` attribute says
   any other dense conv (strided, padded
   otherwise, other kernel sizes)          -> int8 im2col, then matmul_int8
   any other grouped conv                  -> NotImplementedError
-On a CPU tensor the kernels run their plain versions.
+On a CPU tensor the kernels run their plain versions.  `matmul_int8` and
+`conv3x3_int8` read their weight as [N][K]; `prepare_int8_weights` makes
+that copy of every such weight once (a `Net` does, when it is built), and
+the two ops take it as `prepared`.
 
 The weight-only ops keep activations in float: `dense_w8` (int8 weights,
 per-output-channel scale after the product) is a plain float32 matmul, as
@@ -33,19 +36,20 @@ product; v2 rounds the scale to the activation dtype first).
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.conv_int8 import conv3x3_int8
 from ..kernels.depthwise_int8 import depthwise3x3_int8
-from ..kernels.matmul_int8 import matmul_int8
+from ..kernels.matmul_int8 import PreparedB, matmul_int8, prepare_b
 from ..kernels.matmul_w4 import matmul_w4
-from .nn import _epilogue, conv_pads, pair, pool2d
+from .nn import _epilogue, conv_pads, full_fp32, pair, pool2d
 from .registry import register
 
-__all__ = ["quantize_array", "dequantize_array", "conv_kind"]
+__all__ = ["quantize_array", "dequantize_array", "conv_kind",
+           "prepare_int8_weights"]
 
 
 def quantize_array(x: torch.Tensor, scale) -> torch.Tensor:
@@ -132,12 +136,42 @@ def _im2col(x, kh, kw, strides, dilation, pads):
     return (cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)).contiguous()
 
 
+def prepare_int8_weights(nodes, params: Dict[str, torch.Tensor]
+                         ) -> Dict[str, PreparedB]:
+    """{node name: prepared weight} for every int8 conv and dense of
+    `nodes` that runs on `matmul_int8` or `conv3x3_int8` (every one but the
+    grouped convs), each weight prepared once however many nodes share it."""
+    by_edge: Dict[str, PreparedB] = {}
+    out = {}
+    for node in nodes:
+        if node.op not in ("conv2d_int8", "dense_int8") or (
+                node.op == "conv2d_int8" and int(node.attr("groups", 1)) != 1):
+            continue
+        e = node.inputs[1]
+        if e not in by_edge:
+            by_edge[e] = prepare_b(params[e])
+        out[node.name] = by_edge[e]
+    return out
+
+
+def _weight(node, w: torch.Tensor, prepared: Optional[PreparedB]):
+    """The weight the kernel takes: the prepared copy made for `w`, or `w`."""
+    if prepared is None:
+        return w
+    if prepared.source is not w:
+        raise ValueError(f"{node.name}: the prepared weight was made for "
+                         f"another tensor than the node's weight")
+    return prepared
+
+
 @register("conv2d_int8")
-def conv2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def conv2d_int8(node, xs: List[torch.Tensor],
+                prepared: Optional[PreparedB] = None) -> List[torch.Tensor]:
     """int8 conv with the fused dequant/bias/residual/act/requant epilogue.
     x: NHWC int8 (or float, quantized here with `in_scale`), w: HWIO int8,
     w_scale: [O] per-output-channel scale.  A residual stays int8 when it
-    is and is dequantized inside the kernel with `residual_scale`."""
+    is and is dequantized inside the kernel with `residual_scale`.
+    `prepared`: `prepare_b(w)`, made once by the caller."""
     x, w, w_scale, bias, residual = _split_q_inputs(node, xs)
     in_scale = float(node.attr("in_scale"))
     if x.dtype != torch.int8:
@@ -159,9 +193,10 @@ def conv2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         return [depthwise3x3_int8(x.contiguous(), w, w_scale, bias,
                                   stride=pair(node.attr("strides", (1, 1)))[0],
                                   **kw)]
+    wk = _weight(node, w, prepared)
     if kind == "conv3x3" and (kh, kw_) == (3, 3):
         return [conv3x3_int8(
-            x.contiguous(), w, w_scale, bias,
+            x.contiguous(), wk, w_scale, bias,
             None if residual is None else residual.contiguous(), **kw)]
     n, o = x.shape[0], w.shape[3]
     if kind == "gemm" and (kh, kw_) == (1, 1):
@@ -171,16 +206,18 @@ def conv2d_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
                        pair(node.attr("dilation", (1, 1))),
                        conv_pads(node, x.shape[1:3], (kh, kw_)))
     oh, ow = cols.shape[1], cols.shape[2]
-    y = matmul_int8(cols.reshape(n * oh * ow, -1), w.reshape(-1, o), w_scale,
+    y = matmul_int8(cols.reshape(n * oh * ow, -1),
+                    w.reshape(-1, o) if prepared is None else wk, w_scale,
                     bias, None if residual is None else residual.reshape(-1, o),
                     **kw)
     return [y.reshape(n, oh, ow, o)]
 
 
 @register("dense_int8")
-def dense_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def dense_int8(node, xs: List[torch.Tensor],
+               prepared: Optional[PreparedB] = None) -> List[torch.Tensor]:
     """int8 fully-connected on `matmul_int8`; a float input is quantized
-    here with `in_scale`."""
+    here with `in_scale`.  `prepared`: `prepare_b(w)`, made once."""
     x, w, w_scale, bias, residual = _split_q_inputs(node, xs)
     in_scale = float(node.attr("in_scale"))
     if x.dtype != torch.int8:
@@ -188,7 +225,8 @@ def dense_int8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     axis = int(node.attr("axis", 1))
     lead = tuple(x.shape[:axis])
     n_out = w.shape[-1]
-    y = matmul_int8(x.reshape(math.prod(lead), -1), w, w_scale, bias,
+    y = matmul_int8(x.reshape(math.prod(lead), -1), _weight(node, w, prepared),
+                    w_scale, bias,
                     None if residual is None else residual.reshape(-1, n_out),
                     **_epilogue_kwargs(node, in_scale))
     return [y.reshape(lead + (n_out,))]
@@ -207,7 +245,8 @@ def dense_w8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Weight-only int8 fully-connected: x @ float(w_q) in float32, times
     the per-output-channel scale, then the epilogue."""
     x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
-    y = torch.matmul(xf.to(torch.float32), w_q.to(torch.float32))
+    with full_fp32():
+        y = torch.matmul(xf.to(torch.float32), w_q.to(torch.float32))
     y = _epilogue(node, y * w_scale.to(torch.float32), bias, residual)
     return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
 

@@ -16,6 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels.flash_attention import takes_head_dim
 from ..models.transformer import (
     TransformerConfig,
     build_transformer_decode_step,
@@ -36,9 +37,11 @@ class GenerationSession:
 
     `device=None` means CUDA and raises where there is none, as `Net` does.
     `prefill_attention="auto"` uses the flash kernel when the session runs
-    on CUDA and the prompt's bucket is at least 512 tokens, the dense path
+    on CUDA, the prompt's bucket is at least 512 tokens and the kernel takes
+    the head dim (`kernels.flash_attention.head_dims`), the dense path
     otherwise; any other value is the prefill graph's attention `impl`
-    ("flash" forces the kernel).  Every row decodes at the
+    ("flash" forces the kernel, which raises `ValueError` on a head dim it
+    does not take).  Every row decodes at the
     same position, so the decode graph takes the aligned single-row cache
     write.
     """
@@ -84,10 +87,14 @@ class GenerationSession:
         return min(-(-P // 128) * 128, self.cfg.max_seq)
 
     def _attention_impl(self, bucket: int) -> Optional[str]:
+        """"auto": flash for a CUDA session from bucket `_FLASH_FROM` on,
+        where the kernel takes the head dim; else the dense path."""
         if self.prefill_attention != "auto":
             return self.prefill_attention
+        dtype = torch.bfloat16 if self.precision == "bf16" else torch.float32
         return ("flash" if self.device.type == "cuda"
-                and bucket >= self._FLASH_FROM else None)
+                and bucket >= self._FLASH_FROM
+                and takes_head_dim(self.cfg.head_dim, dtype) else None)
 
     def _prefill_net(self, bucket: int):
         if bucket not in self._prefill_nets:

@@ -11,6 +11,11 @@ JAX package's, so that the two agree node by node:
     own dtype, and its float outputs cast back to the compute dtype;
   * every other node's float outputs keep the dtype the op gave them, and
     the next consumer casts them to what it wants.
+
+A `Net` also prepares, once when it is built, the [N][K] copy of every int8
+weight that the int8 GEMM kernels read (`ops.quantized.
+prepare_int8_weights`), and hands it to the node's op, so that no step
+transposes a weight.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from ..convert import params_from_numpy
 from ..graph.ir import Graph, Node, topological_order
 from ..ops import get_op
+from ..ops.quantized import prepare_int8_weights
 
 __all__ = ["Net", "build_forward"]
 
@@ -36,7 +42,8 @@ def build_forward(
     start_from: Optional[str] = None,
     tap_edges: Sequence[str] = (),
 ) -> Tuple[Callable, List[Node]]:
-    """Build `f(params, inputs) -> {edge: tensor}`.
+    """Build `f(params, inputs, prepared=None) -> {edge: tensor}`, where
+    `prepared` maps node names to the weights `prepare_int8_weights` made.
 
     `stop_at` / `start_from` cut the node order (with `start_from`, inputs
     feed the interior edges consumed at the cut); `tap_edges` adds interior
@@ -66,7 +73,10 @@ def build_forward(
         for n in order if graph.precisions.get(n.name) in _COMPUTE_DTYPES}
 
     def forward(params: Dict[str, torch.Tensor],
-                inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                inputs: Dict[str, torch.Tensor],
+                prepared: Optional[Dict[str, Any]] = None
+                ) -> Dict[str, torch.Tensor]:
+        prepared = prepared or {}
         env: Dict[str, torch.Tensor] = {
             k: v.to(compute_dtype) if v.is_floating_point() else v
             for k, v in inputs.items()}
@@ -85,7 +95,9 @@ def build_forward(
                 if v.is_floating_point() and v.dtype != want:
                     v = v.to(want)
                 xs.append(v)
-            ys = get_op(node.op)(node, xs)
+            prep = prepared.get(node.name)
+            ys = (get_op(node.op)(node, xs) if prep is None
+                  else get_op(node.op)(node, xs, prepared=prep))
             for e, y in zip(node.outputs, ys):
                 if (y.is_floating_point() and y.dtype != compute_dtype
                         and node.name in node_prec):
@@ -119,7 +131,8 @@ class Net:
 
     `device=None` means CUDA and raises where there is none; the CPU is
     used only when asked for (`device="cpu"`).  Weights go to the device
-    once, cast to the compute dtype.
+    once, cast to the compute dtype, and the int8 GEMM weights are prepared
+    once (`prepared`).
     """
 
     def __init__(
@@ -142,13 +155,14 @@ class Net:
         self.params = {
             k: v.to(dtype) if v.is_floating_point() else v
             for k, v in params_from_numpy(graph.params, self.device).items()}
+        self.prepared = prepare_int8_weights(self.order, self.params)
 
     def prediction(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One forward step on numpy arrays or tensors; returns tensors on
         the net's device."""
         feed = {k: _to_device(v, self.device) for k, v in inputs.items()}
         with torch.inference_mode():
-            return self.forward(self.params, feed)
+            return self.forward(self.params, feed, self.prepared)
 
     def __call__(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return self.prediction(inputs)

@@ -13,24 +13,38 @@ package's suite configuration: random weights from seed 0, scales from
 `calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
 net); then, on the same LLM weights and ResNet net, the distinct-position
 w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
-through the fused bottleneck_int8.  About 200 s on an H100, nvcc included.
+through the fused bottleneck_int8.  About 6 minutes on an H100, of which
+about 80 s are nvcc (the int8 core's sources are the slowest).
 Phases:
 
   1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
               per source, all at once) and print what ptxas says;
   2. resnet   one forward through `Net.prediction` with every kernel's
               launch count set to 0 just before and read just after:
-              matmul_int8 must launch 40 times and conv3x3_int8 13 times;
-              the softmax must be finite rows summing to 1; then ms/step
-              and img/s from CUDA events, and one profiled step;
+              matmul_int8 must launch 40 times and conv3x3_int8 13 times,
+              and no weight may be prepared (transposed to [N][K]) within
+              the step: the Net prepared all 53 when it was built; the
+              softmax must be finite rows summing to 1; then ms/step and
+              img/s from CUDA events, and one profiled step;
   3. kernels  each ResNet kernel's wrapper against its plain PyTorch version
               on the card, on random int8 data at every distinct shape and
-              epilogue of the path: int8 outputs equal, float outputs within
-              rtol 1e-6; timed beside the plain version, the bound and, for
-              the GEMM, `torch._int_mm` (PyTorch has no int8 convolution on
-              CUDA, so the 3x3 has none);
+              epilogue of the path, with the weight prepared once as the Net
+              does: int8 outputs equal, float outputs within rtol 1e-6; the
+              tile configuration each shape takes; timed by CUDA-graph
+              replay over copies of the operands that rotate them out of L2
+              (and, as context, by events around an eager loop on one set of
+              operands, as PR 1-5 timed it) beside the plain version, the
+              bound and, for the GEMM, `torch._int_mm`; PyTorch has no int8
+              convolution on CUDA, so the 3x3 has no library call, and
+              cuDNN's bf16 conv on the same shapes is printed as a reference
+              only;
   4. cpu/gpu  ResNet at batch 2 on the card and on the CPU: equal top-1 and
-              softmax within rtol 5e-3 and atol 1e-4;
+              softmax within rtol 5e-3 and atol 1e-4; then a `dense` node
+              and the attention projection under the process-wide
+              `torch.set_float32_matmul_precision("high")` against float64:
+              within 1e-6 of |x| @ |w| (the ops scope TF32 off themselves;
+              this script sets no TF32 flag), while the same product with no
+              scope, the control, must exceed that (TF32);
   5. llm A    `GenerationSession(batch 8, bf16, int8 KV cache)` generates 32
               greedy tokens after a 512-token prompt: the prefill (bucket
               512, so flash) must launch flash_attention 16 times; tokens in
@@ -45,10 +59,13 @@ Phases:
               ragged S = 300 with segment ids, S = 2048, float32 inputs,
               and the bf16 kernel's other paths (one, two and four query
               heads per kv head, an odd group, D = 64 and 32, S = 128 k + 1,
-              no causal mask); matmul_w4 with bf16 scales (as the net hands
+              no causal mask), and the head dims 80, 96 and 256 (ragged
+              lengths too); matmul_w4 with bf16 scales (as the net hands
               them over) and float32 ones, M = 1, 5, 16 (the edges of the
               M <= 16 route) and 4096, N = 1003 (the byte-by-byte path), K
-              = G = 128 (one group, one split), float32 x; tolerances as
+              = G = 128 (one group, one split), float32 x, and the groups
+              the quantizer writes beside 128 (32, and 96 over K = 96 and
+              1920, each timed beside the G = 128 case); tolerances as
               each kernel's source states them; each timed beside its plain
               version, its bound and a library call
               (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`);
@@ -65,8 +82,9 @@ Phases:
               img/s from CUDA events, one profiled step;
  10. kernel   depthwise3x3_int8 against its plain version at every distinct
               shape of the two forwards (9 + 10) with the path's epilogue,
-              plus a ragged C, odd H/W, float32 and bf16 outputs,
-              leaky_relu, no bias and a misaligned x: int8 outputs equal,
+              plus a ragged C, odd H/W at stride 1 and 2 (25 x 25, 7 x 9),
+              float32 and bf16 outputs, leaky_relu, no bias and a misaligned
+              x: int8 outputs equal,
               float outputs within rtol 1e-6; timed by CUDA-graph replay
               with x rotated out of L2, beside its bound, its plain version
               and, as context only, cuDNN's bf16 grouped conv;
@@ -94,8 +112,9 @@ Phases:
               shapes (scales in bf16, as the net hands them over), float32
               x, a prefill-sized M, float32 scales with bf16 x (where v2's
               dequantized weights differ from v1's; the count is printed),
-              and phase 7's edges of the M <= 16 route (M = 1 and 16, N =
-              1003, K = G = 128); tolerance as phase 7; timed beside its
+              phase 7's edges of the M <= 16 route (M = 1 and 16, N =
+              1003, K = G = 128) and its groups 32 and 96; tolerance as
+              phase 7; timed beside its
               bound, its plain version, v1 on the same inputs and
               `torch._weight_int4pack_mm`;
  14. bottleneck the 12 identity blocks of phase 2's ResNet-50 b128 net (2/3/5/2
@@ -290,12 +309,19 @@ def bound(kernel, cfg):
 
 
 def check_kernel(kernel, cfg, gen):
-    """Wrapper against plain version on the card; times of both and of
-    the library's product.  Returns a result dict."""
+    """Wrapper against plain version on the card, on the weight prepared
+    once as a Net prepares it; times of the kernel, of the plain version and
+    of the library's product (`torch._int_mm`; for the 3x3, cuDNN's bf16
+    conv as a labelled reference: not the same function), each over enough
+    copies of its operands (100 MiB or more) that every call reads them from
+    HBM, as a forward does.  Returns a result dict."""
+    import torch.nn.functional as F
     from anakin_tpu_torch.kernels.conv_int8 import (conv3x3_int8,
                                                     conv3x3_int8_plain)
-    from anakin_tpu_torch.kernels.matmul_int8 import (matmul_int8,
-                                                      matmul_int8_plain)
+    from anakin_tpu_torch.kernels.matmul_int8 import (igemm_config,
+                                                      matmul_int8,
+                                                      matmul_int8_plain,
+                                                      prepare_b)
 
     dev = torch.device("cuda")
 
@@ -319,8 +345,9 @@ def check_kernel(kernel, cfg, gen):
               out_scale=0.4 if cfg["requant"] else None,
               residual_scale=0.07 if cfg["residual"] else None)
     launches = fn.launches
-    got = fn(a, b, ws, bias, res, **kw)
+    pb = prepare_b(b)
     want = plain(a, b, ws, bias, res, **kw)
+    got = fn(a, pb, ws, bias, res, **kw)
     torch.cuda.synchronize()
     if got.dtype == torch.int8:
         err = float((got.int() - want.int()).abs().max())
@@ -329,17 +356,50 @@ def check_kernel(kernel, cfg, gen):
         d = (got.float() - want.float()).abs()
         err = float(d.max())
         ok = bool((d <= 1e-6 * want.float().abs()).all())
-    ms = cuda_ms(lambda: fn(a, b, ws, bias, res, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: plain(a, b, ws, bias, res, **kw), iters=3,
-                       warmup=1)
+
+    def n_copies(*ts):
+        return max(2, -(-100 * 2 ** 20 // sum(t.numel() * t.element_size()
+                                              for t in ts if t is not None)))
+
+    def clone(t):
+        return None if t is None else t.clone()
+
+    nc = n_copies(a, pb.t, res)
+    copies = [(clone(a), pb._replace(t=pb.t.clone()), clone(res))
+              for _ in range(nc)]
+    ms = graph_ms(rotating(lambda a_, b_, r_: fn(a_, b_, ws, bias, r_, **kw),
+                           copies), iters=nc * -(-20 // nc))
+    # events around an eager loop on one set of operands, as PR 1-5 timed
+    # this phase: context only (the host's time per call shows where it
+    # exceeds the kernel's)
+    eager_ms = cuda_ms(lambda: fn(a, pb, ws, bias, res, **kw), iters=20)
+    plain_ms = graph_ms(rotating(lambda a_, b_, r_: plain(
+        a_, b_, ws, bias, r_, **kw), copies[:2]), iters=2)
     fn.launches = launches  # the comparison's launches are not the path's
-    library_ms = None
+    del copies
+    library_ms = cudnn_ms = None
     if kernel == "matmul_int8":
-        library_ms = cuda_ms(lambda: torch._int_mm(a, b), iters=20)
+        nc = n_copies(a, b)
+        lib_copies = [(a.clone(), b.clone()) for _ in range(nc)]
+        library_ms = graph_ms(rotating(torch._int_mm, lib_copies),
+                              iters=nc * -(-20 // nc))
+        m, n, k = cfg["M"], cfg["N"], cfg["K"]
+    else:
+        xb = a.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = b.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+        nc = n_copies(xb, wb)
+        lib_copies = [(xb.clone(), wb.clone()) for _ in range(nc)]
+        cudnn_ms = graph_ms(rotating(lambda x_, w_: F.conv2d(x_, w_, padding=1),
+                                     lib_copies), iters=nc * -(-20 // nc))
+        m, n, k = cfg["N"] * cfg["H"] * cfg["W"], cfg["O"], 9 * cfg["C"]
+    del lib_copies
+    bm, bn, splits = igemm_config(m, n, k)
     bms, by = bound(kernel, cfg)
-    return dict(kernel=kernel, **cfg, ok=ok, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-                bound_by=by)
+    return dict(kernel=kernel, **cfg, ok=ok, max_abs_err=err,
+                ms=ms, eager_ms=eager_ms,
+                tile=f"{bm}x{bn}",
+                k_splits=splits, plain_ms=plain_ms, library_ms=library_ms,
+                cudnn_bf16_conv_ms=cudnn_ms, bound_ms=bms, bound_by=by)
 
 
 def summarize(results, counts, units):
@@ -452,13 +512,22 @@ def resnet_phases(report, card):
     log(f"[path] graph, weights and first forward: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
+
+    prepared_at_build = len({id(p) for p in net.prepared.values()})
     reset_counts()
+    prepare_b.calls = 0
     y = net.prediction({"input": x})[out_edge]
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"[path] launches in one forward: {counts}")
+    log(f"[path] launches in one forward: {counts}; weights prepared at "
+        f"build {prepared_at_build}, in the forward {prepare_b.calls}")
     if counts != dict(no_launches(), matmul_int8=40, conv3x3_int8=13):
         raise AssertionError(f"expected 40 + 13 kernel launches, got {counts}")
+    if prepare_b.calls or prepared_at_build != 53:
+        raise AssertionError(f"expected 53 weights prepared at build and no "
+                             f"transpose in a step, got {prepared_at_build} "
+                             f"and {prepare_b.calls}")
     yf = y.float()
     if tuple(y.shape) != (BATCH, 1000) or not torch.isfinite(yf).all():
         raise AssertionError(f"bad output {tuple(y.shape)}")
@@ -467,7 +536,9 @@ def resnet_phases(report, card):
 
     step_ms = cuda_ms(lambda: net.prediction({"input": x}), iters=10)
     report["path"] = dict(batch=BATCH, image=IMAGE, precision="bf16",
-                          launches=counts, ms_per_step=step_ms,
+                          launches=counts, weights_prepared=prepared_at_build,
+                          transposes_in_step=prepare_b.calls,
+                          ms_per_step=step_ms,
                           img_per_s=BATCH / step_ms * 1e3)
     log(f"[path] ResNet-50 int8 b{BATCH} {IMAGE}px: {step_ms:.3f} ms/step, "
         f"{BATCH / step_ms * 1e3:.1f} img/s | {card}")
@@ -494,17 +565,33 @@ def resnet_phases(report, card):
         shape = ("x".join(str(r[k]) for k in ("N", "H", "W", "C", "O"))
                  if kernel == "conv3x3_int8"
                  else "x".join(str(r[k]) for k in ("M", "K", "N")))
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f}")
+        if r["cudnn_bf16_conv_ms"] is not None:
+            lib += f" cudnn-bf16-conv={r['cudnn_bf16_conv_ms']:.4f}"
         log(f"[kernel] {kernel:12s} {shape:22s} x{n_calls} act={r['activation']}"
             f" res={int(r['residual'])} int8out={int(r['requant'])} "
-            f"err={r['max_abs_err']:g} ms={r['ms']:.4f} plain={r['plain_ms']:.3f}"
+            f"tile={r['tile']} splits={r['k_splits']} "
+            f"err={r['max_abs_err']:g} ms={r['ms']:.4f} "
+            f"eager={r['eager_ms']:.4f} "
+            f"plain={r['plain_ms']:.3f}"
             f" lib={lib} bound={r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
     report["kernel_configs"] = results
+    for kernel in ("matmul_int8", "conv3x3_int8"):
+        rs = [r for r in results if r["kernel"] == kernel]
+
+        def total(key):
+            return sum((r[key] or 0.0) * r["calls_per_run"] for r in rs)
+
+        log(f"[kernel] {kernel} per forward: {total('ms'):.4f} ms, eager "
+            f"(events around a loop of calls) {total('eager_ms'):.4f} ms, bound "
+            f"{total('bound_ms'):.4f} ms, library {total('library_ms'):.4f}, "
+            f"cudnn bf16 conv {total('cudnn_bf16_conv_ms'):.4f}")
     log("[kernel] conv3x3_int8 has no library_ms: PyTorch has no int8 "
-        "convolution on CUDA")
+        "convolution on CUDA (cuDNN's bf16 conv is a reference only)")
 
     # -------------------------------------------------------- 4. cpu/gpu
     g2 = build_graph(2)
@@ -535,7 +622,55 @@ def resnet_phases(report, card):
     report["cpu_gpu"] = dict(int8_max_lsb=lsb, int8_diff_elements=n_diff,
                              logits_rel_err=logit_err,
                              softmax_max_abs=soft_err)
+    report["float32_check"] = float32_check()
     return results, counts, (net, g128, x)
+
+
+FP32_LIMIT = 1e-6  # of |x| @ |w|: float32 gives ~4e-8 here, TF32 ~6e-5
+
+
+def float32_check():
+    """A `dense` node and the attention projection on the card under the
+    process-wide `torch.set_float32_matmul_precision("high")` (which lets
+    cuBLAS use TF32) against a float64 reference: the ops scope TF32 off
+    themselves, so the error must stay below FP32_LIMIT of |x| @ |w|.  The
+    control, the same product with no scope (`torch.matmul` under "high"),
+    must exceed it: otherwise the check could not see TF32."""
+    from anakin_tpu_torch.graph.ir import Node
+    from anakin_tpu_torch.ops import get_op
+    from anakin_tpu_torch.ops.attention import _project
+
+    rng = np.random.default_rng(5)
+    K = 2048
+    x = torch.from_numpy(rng.normal(size=(8, 64, K)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(K, 512)).astype(np.float32)).cuda()
+    want = x.double() @ w.double()
+    mag = x.double().abs() @ w.double().abs()
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        dense = get_op("dense")(Node("n", "dense", ["x", "w"], ["y"],
+                                     dict(axis=2)), [x, w])[0]
+        proj = _project(x, w, 4, 128).permute(0, 2, 1, 3).reshape(8, 64, 512)
+        control = torch.matmul(x, w)
+        torch.cuda.synchronize()
+        if torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("the ops changed the caller's precision")
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    out = {}
+    for name, got in (("dense", dense), ("project", proj),
+                      ("control", control)):
+        rel = float(((got.double() - want).abs() / mag).max())
+        out[name] = rel
+        log(f"[fp32] {name} under matmul precision 'high': max |err| / "
+            f"(|x| @ |w|) = {rel:.3g} (limit {FP32_LIMIT:g})")
+        if name == "control" and rel <= FP32_LIMIT:
+            raise AssertionError(f"the unscoped product under 'high' is "
+                                 f"within the limit ({rel}): no TF32 to see")
+        if name != "control" and rel > FP32_LIMIT:
+            raise AssertionError(f"{name} is not float32 under 'high': {rel}")
+    return out
 
 
 # --------------------------------------------------------------------- LLM
@@ -897,6 +1032,18 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
                 calls_per_run=calls)
 
 
+# every group the quantizer writes, beside the path's 128: 32 (K 2048), K
+# itself (K = G = 96), 96 over K 1920, at the decode shape (M 8, N 8192),
+# bf16 x with bf16 scales as a bf16 net hands them over, and float32 x
+W4_GROUP_CASES = [  # (M, K, N, G, dtype, scales in bf16, calls per run)
+    (LLM_BATCH, 2048, 8192, 128, torch.bfloat16, True, 0),
+    (LLM_BATCH, 2048, 8192, 32, torch.bfloat16, True, 0),
+    (LLM_BATCH, 96, 8192, 96, torch.bfloat16, True, 0),
+    (LLM_BATCH, 1920, 8192, 96, torch.bfloat16, True, 0),
+    (LLM_BATCH, 2048, 8192, 32, torch.float32, False, 0),
+]
+
+
 def llm_kernels(report, cfg):
     """Phase 7: both LLM kernels against their plain versions."""
     E, F_ = cfg.embed, 4 * cfg.embed
@@ -923,6 +1070,15 @@ def llm_kernels(report, cfg):
         (2, H, H, PROMPT, D, torch.bfloat16, True, None, 0),
         (2, 6, 2, 129, 32, torch.bfloat16, True, None, 0),
         (2, H, Hkv, 385, D, torch.bfloat16, True, None, 0),
+        # the head dims of public configs beside 32, 64 and 128: 80 (an odd
+        # number of 16-wide k steps), 96, 256 (one row tile a warp); ragged
+        # lengths, so only the rows below each length are compared
+        (B, H, Hkv, PROMPT, 80, torch.bfloat16, True, None, 0),
+        (B, H, Hkv, PROMPT, 96, torch.bfloat16, True, None, 0),
+        (B, H, Hkv, PROMPT, 256, torch.bfloat16, True, None, 0),
+        (2, H, Hkv, 300, 80, torch.bfloat16, True, [300, 173], 0),
+        (2, H, Hkv, 300, 256, torch.bfloat16, False, [300, 173], 0),
+        (2, H, Hkv, 300, 96, torch.float32, True, [300, 173], 0),
     ]
     bf16, f32 = torch.bfloat16, torch.float32
     w4_cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
@@ -946,7 +1102,7 @@ def llm_kernels(report, cfg):
         (B, F_, E, 128, f32, False, 0),
         (5, E, F_, 128, f32, True, 0),
         (4096, E, F_, 128, f32, False, 0),
-    ]
+    ] + W4_GROUP_CASES
     results = []
     for b, h, hkv, s, d, dt, causal, lens, calls in flash_cases:
         r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls)
@@ -992,7 +1148,7 @@ def w4_v2_kernels(report, cfg):
         (16, E, F_, 128, bf16, True, 0),
         (B, E, 1003, 128, bf16, True, 0),
         (B, 128, F_, 128, bf16, True, 0),
-    ]
+    ] + W4_GROUP_CASES
     results = []
     for m, k, n, grp, dt, bs, calls in cases:
         r = check_w4(m, k, n, grp, dt, gen, calls, variant="v2", bf16_scales=bs)
@@ -1234,8 +1390,8 @@ def check_dw(cfg, gen, misaligned=False):
                 bound_ms=bms, bound_by=by)
 
 
-# extra depthwise cases the path does not give: ragged C, odd H/W at s1,
-# float outputs, leaky_relu, no bias, a misaligned x
+# extra depthwise cases the path does not give: ragged C, odd H/W at s1
+# and s2, float outputs, leaky_relu, no bias, a misaligned x
 DW_EXTRA = [
     (dict(N=8, H=56, W=56, C=40, stride=1, activation="relu6", bias=True,
           out="int8"), False),
@@ -1251,6 +1407,12 @@ DW_EXTRA = [
           out="int8"), False),
     (dict(N=16, H=28, W=28, C=128, stride=1, activation="relu6", bias=True,
           out="int8"), True),
+    # odd sizes at stride 2: MobileNet v1 at 200 px reaches 25 x 25 at a
+    # stride-2 depthwise conv; 7 x 9 odd in both, with a ragged C
+    (dict(N=32, H=25, W=25, C=256, stride=2, activation="relu6", bias=True,
+          out="int8"), False),
+    (dict(N=8, H=7, W=9, C=40, stride=2, activation="relu", bias=True,
+          out="int8"), False),
 ]
 
 
@@ -1492,6 +1654,7 @@ def check_bottleneck(cfg, gen):
     replay with x rotated through >= 100 MB of copies."""
     from anakin_tpu_torch.kernels import (bottleneck_int8, bottleneck_int8_plain,
                                           conv3x3_int8, matmul_int8)
+    from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
 
     n, h, w, c, p = (cfg[k] for k in ("N", "H", "W", "C", "P"))
 
@@ -1516,15 +1679,16 @@ def check_bottleneck(cfg, gen):
     else:
         kw["out_dtype"] = getattr(torch, cfg["out"])
     weights = (wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)
+    pa, pb, pc = (prepare_b(t) for t in (wa, wb, wc))  # as a Net holds them
 
     def chain(x_):
         rows = x_.reshape(-1, c)
-        a = matmul_int8(rows, wa, wsa, ba, in_scale=kw["in_scale"],
+        a = matmul_int8(rows, pa, wsa, ba, in_scale=kw["in_scale"],
                         activation="relu", out_scale=kw["a_scale"])
-        b = conv3x3_int8(a.reshape(n, h, w, p), wb, wsb, bb,
+        b = conv3x3_int8(a.reshape(n, h, w, p), pb, wsb, bb,
                          in_scale=kw["a_scale"], activation="relu",
                          out_scale=kw["b_scale"])
-        return matmul_int8(b.reshape(-1, p), wc, wsc, bc, rows,
+        return matmul_int8(b.reshape(-1, p), pc, wsc, bc, rows,
                            in_scale=kw["b_scale"], activation="relu",
                            out_scale=kw.get("out_scale"),
                            out_dtype=kw.get("out_dtype", torch.float32),
@@ -1665,8 +1829,6 @@ def main(argv) -> int:
     from anakin_tpu_torch.kernels import _build
     from anakin_tpu_torch.models import TransformerConfig, make_transformer_params
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
-    torch.backends.cudnn.allow_tf32 = False
     card = gpu_name_and_power_limit()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} | {card}")

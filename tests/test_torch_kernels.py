@@ -20,10 +20,14 @@ from anakin_tpu.kernels.conv_int8 import conv3x3_int8 as jax_conv3x3_int8
 from anakin_tpu.kernels.depthwise_int8 import \
     depthwise3x3_int8 as jax_depthwise3x3_int8
 from anakin_tpu.kernels.matmul_int8 import matmul_int8 as jax_matmul_int8
+from anakin_tpu.graph.ir import Node as JaxNode
+from anakin_tpu.ops import get_op as jax_get_op
 from anakin_tpu_torch.kernels import _build
 from anakin_tpu_torch.kernels.conv_int8 import conv3x3_int8
 from anakin_tpu_torch.kernels.depthwise_int8 import depthwise3x3_int8
 from anakin_tpu_torch.kernels.matmul_int8 import matmul_int8
+from anakin_tpu_torch.graph.ir import Node
+from anakin_tpu_torch.ops import get_op
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -185,13 +189,32 @@ def test_depthwise3x3_int8_refuses_transcendental_epilogue(act):
         depthwise3x3_int8(x, w, torch.ones(8), in_scale=1.0, activation=act)
 
 
-@pytest.mark.parametrize("shape", [(1, 5, 4, 8), (1, 4, 7, 8)])
-def test_depthwise3x3_int8_refuses_odd_size_at_stride_2(shape):
-    x = torch.zeros(shape, dtype=torch.int8)
-    w = torch.zeros((3, 3, 1, 8), dtype=torch.int8)
-    with pytest.raises(ValueError, match="even"):
-        depthwise3x3_int8(x, w, torch.ones(8), stride=2, in_scale=1.0)
-    assert depthwise3x3_int8(x, w, torch.ones(8), in_scale=1.0).shape == shape
+@pytest.mark.parametrize("shape", [(1, 5, 4, 8), (1, 4, 7, 8), (2, 25, 25, 16),
+                                   (1, 7, 9, 24)])
+def test_depthwise3x3_int8_takes_odd_size_at_stride_2(rng, shape):
+    """A stride-2 "dw3x3" node over an odd H or W (MobileNet v1 at 200 px
+    reaches 25 x 25): the port's `conv2d_int8` (depthwise3x3_int8) against
+    the JAX package's default route (XLA) on the same node.  int8 outputs
+    equal: out_scale is a power of two, so the JAX route's divide and the
+    kernel's reciprocal multiply round alike."""
+    N, H, W, C = shape
+    x = rng.integers(-127, 128, shape).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, 1, C)).astype(np.int8)
+    ws = rng.uniform(0.001, 0.01, C).astype(np.float32)
+    b = rng.normal(size=C).astype(np.float32)
+    attrs = dict(strides=(2, 2), padding=(1, 1), groups=C, has_bias=True,
+                 has_residual=False, activation="relu6", in_scale=0.05,
+                 out_scale=0.25)
+    names = ["x", "w", "w_scale", "bias"]
+    want = np.asarray(jax_get_op("conv2d_int8")(
+        JaxNode("dw", "conv2d_int8", names, ["out"], dict(attrs)),
+        [jnp.asarray(v) for v in (x, w, ws, b)])[0])
+    got = get_op("conv2d_int8")(Node("dw", "conv2d_int8", names, ["out"],
+                                     dict(attrs)),
+                                [_to_torch(v) for v in (x, w, ws, b)])[0]
+    assert want.shape == (N, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_matmul_int8_exact_at_large_accumulators():

@@ -371,6 +371,27 @@ def test_dense_w4_matches_jax(rng, interpret, precision, impl, epilogue):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("K,group", [(256, 32), (96, 128), (192, 6)])
+def test_dense_w4_takes_every_quantizer_group(rng, precision, K, group):
+    """Every group the quantizer writes (any even G that divides K: 32, K
+    itself when the asked-for group is larger, 6) through the port's
+    dense_w4 against the JAX op's default route."""
+    from anakin_tpu.quant.quantize import _w4_group_quantize
+
+    N = 136
+    packed, scale, G = _w4_group_quantize(
+        rng.normal(size=(K, N)).astype(np.float32) * 0.05, group)
+    assert G == min(group, K)
+    arrays = [rng.normal(size=(3, K)).astype(np.float32), packed, scale]
+    jd = jnp.float32 if precision == "fp32" else jnp.bfloat16
+    td = torch.float32 if precision == "fp32" else torch.bfloat16
+    got, want = _run_both("dense_w4", arrays, [jd, None, jd], [td, None, td],
+                          w4_group=G)
+    assert got[0].dtype == td and tuple(got[0].shape) == (3, N)
+    (_close_f32 if precision == "fp32" else _close_bf16)(got[0], want[0])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 @pytest.mark.parametrize("variant", ["v1", "v2"])
 def test_dense_w4_routes_like_jax(rng, interpret, monkeypatch, precision,
@@ -665,6 +686,36 @@ def test_session_flash_gate_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             GenerationSession(pc)
+
+
+@pytest.mark.parametrize("embed,heads,precision,want", [
+    (160, 2, "bf16", "flash"),   # head dim 80
+    (192, 2, "fp32", "flash"),   # 96
+    (512, 2, "bf16", "flash"),   # 256
+    (512, 2, "fp32", None),      # 256: the float32 kernel stops at 128
+    (96, 2, "bf16", None),       # 48: no kernel instance
+])
+def test_session_auto_takes_flash_only_for_its_head_dims(embed, heads,
+                                                         precision, want):
+    """"auto" on a CUDA session takes flash from bucket 512 only where the
+    kernel takes the head dim for the session's dtype; else the dense
+    path."""
+    cfg = pt_tf.TransformerConfig(**dict(CFG, embed=embed, heads=heads,
+                                         kv_heads=1, layers=1))
+    s = GenerationSession(cfg, device="cpu", precision=precision)
+    s.device = torch.device("cuda")
+    assert s._attention_impl(512) == want and s._attention_impl(384) is None
+
+
+def test_flash_head_dims():
+    from anakin_tpu_torch.kernels.flash_attention import (head_dims,
+                                                          takes_head_dim)
+
+    assert head_dims(torch.bfloat16) == (32, 64, 80, 96, 128, 256)
+    assert head_dims(torch.float32) == (32, 64, 80, 96, 128)
+    assert takes_head_dim(80, torch.float32)
+    assert not takes_head_dim(256, torch.float32)
+    assert not takes_head_dim(48, torch.bfloat16)
 
 
 def test_kernel_sources_and_launch_counters():

@@ -19,6 +19,7 @@ import pytest
 
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from anakin_tpu.graph.ir import Node as JaxNode
 from anakin_tpu.ops import get_op as jax_get_op
@@ -299,3 +300,79 @@ def test_dense_int8(rng, monkeypatch, impl, out_scale):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-6,
                                    atol=1e-6 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("prec", ["highest", "high", "medium"])
+def test_full_fp32_restores_the_callers_setting(prec):
+    """The float ops' TF32 scope: full float32 inside, the caller's
+    matmul precision and cuDNN TF32 flag back outside, on an exception
+    too."""
+    from anakin_tpu_torch.ops.nn import full_fp32
+
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    try:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cudnn.allow_tf32 = True
+        with full_fp32():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == prec
+        assert torch.backends.cudnn.allow_tf32
+        with pytest.raises(KeyError):
+            with full_fp32():
+                raise KeyError("inside")
+        assert torch.get_float32_matmul_precision() == prec
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+class _MatmulPrecisions(TorchDispatchMode):
+    """Records the float32 matmul precision in force at every float32
+    matrix product that reaches ATen."""
+
+    PRODUCTS = ("mm", "bmm", "addmm", "baddbmm", "addbmm")
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if (func.overloadpacket.__name__ in self.PRODUCTS
+                and args[0].dtype == torch.float32):
+            self.seen.append(torch.get_float32_matmul_precision())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("which", ["dense", "project"])
+def test_float32_products_ignore_high_precision(rng, which):
+    """A `dense` node and the attention projection under the process-wide
+    `set_float32_matmul_precision("high")` (TF32 on a CUDA card): every
+    float32 product they issue runs at "highest", and the result is within
+    1e-6 of |x| @ |w| of a float64 reference (float32 rounding gives ~4e-8
+    at K = 2048 on an H100, TF32 some 6e-5; this CPU has no TF32, so the
+    recorded precision is what can fail here)."""
+    from anakin_tpu_torch.ops.attention import _project
+
+    x = rng.normal(size=(4, 3, 256)).astype(np.float32)
+    w = rng.normal(size=(256, 64)).astype(np.float32)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with _MatmulPrecisions() as rec:
+            if which == "dense":
+                node = Node("n", "dense", ["x", "w"], ["y"], dict(axis=2))
+                got = get_op("dense")(node, [torch.from_numpy(x),
+                                             torch.from_numpy(w)])[0]
+            else:
+                got = _project(torch.from_numpy(x), torch.from_numpy(w), 2, 32)
+                got = got.permute(0, 2, 1, 3).reshape(4, 3, 64)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert rec.seen and set(rec.seen) == {"highest"}, rec.seen
+    want = x.astype(np.float64) @ w.astype(np.float64)
+    mag = np.abs(x).astype(np.float64) @ np.abs(w).astype(np.float64)
+    assert (np.abs(got.numpy() - want) <= 1e-6 * mag).all()
