@@ -12,26 +12,78 @@
 // depthwise3x3_int8.  That kernel pads the image, rolls int32 products
 // along sublanes for the +-1 column taps, and splits a stride-2 image into
 // four parity planes, because Mosaic has no strided int8 loads and no int8
-// rotates.  None of that is needed here: the halo is a bounds check, the
-// stride is index arithmetic, and no padded or parity-split copy is made.
-// Any H and W are taken at either stride, odd ones at stride 2 included
-// (Ho = (H - 1) / 2 + 1; the last row and column's taps past the image are
-// halo), as the JAX package's default XLA route computes them.
+// rotates.  Here the halo is the copies' zero fill and the stride is index
+// arithmetic.  Any H and W are taken at either stride, odd ones at stride 2
+// included (Ho = (H - 1) / 2 + 1), as the JAX package's default XLA route
+// computes them.
 //
-// What bounds it on an H100: 18 operations per output element against at
-// least 2 bytes (one int8 read of x, one int8 write of y, at stride 1), so
-// it is bound by memory bandwidth, x + y + w bytes over 3.35 TB/s.  This
-// first version gives each thread one output pixel x 16 contiguous channels
-// (16-byte loads of x and w, 16 int32 accumulators); the nine taps of
-// neighbouring pixels re-read x, mostly from L1/L2.  Shared-memory row
-// tiles, so that each input byte leaves HBM once, are the next step.  A
-// ragged C or a misaligned pointer takes a one-channel-per-thread path.
+// What bounds it on an H100: 18 operations per output against at least 2
+// bytes (x read once, y written once, at stride 1), so memory bandwidth: x
+// + y + w bytes over 3.35 TB/s, 0.191 ms for MobileNet v1's 13 calls at
+// b128 and 0.231 ms for v2's 17.  At their 247 M and 295 M outputs that
+// leaves about ten instructions an output, so the instruction stream
+// matters as much as the bytes.
+//
+// Design (the tiled route, dw3x3_tiled):
+//   * A block takes one image, a band of TH output rows and G chunks of 32
+//     channels.  It stages the band's input rows (halo included) into
+//     shared memory with 16-byte cp.async pieces, zero-filled outside the
+//     image, so each byte of x leaves HBM once (the bands' shared halo rows
+//     excepted).  TH is the most rows whose tile fits 36 KB, evened out
+//     over the image; G is 1, or more on a narrow image (14 x 14, 7 x 7),
+//     so that the block's 8 warps still have work.
+//   * Lane l of a warp owns one channel; 32 lanes read 32 neighbouring
+//     bytes of one pixel, so the shared-memory reads are conflict-free.  A
+//     warp takes four neighbouring output columns of its channel over a run
+//     of R output rows.  For each input row it packs the 3 + 3 s bytes it
+//     needs into words with __byte_perm and forms the four windows
+//     [x(s wo - 1), x(s wo), x(s wo + 1), -] of its outputs (stride 2 takes
+//     even and odd columns apart by the same byte_perm: the Pallas kernel's
+//     parity planes, made in registers); each window is one __dp4a against
+//     the tap row's weight word [k0, k1, k2, 0], built once per thread.  A
+//     window row serves the three output rows it lies under, kept in
+//     registers in rotation.
+//   * The epilogue's float steps are the unfused kernels' (int8_epilogue.cuh),
+//     with no int/float conversion instruction: |acc| <= 9 * 127^2 < 2^22
+//     becomes a float by the exact 1.5 * 2^23 addition, and the requant
+//     rounds by it (I2F / F2I run at 16 an SM a clock on Hopper, an eighth
+//     of the FP32 rate).  The activation and the output type are template
+//     arguments.  A warp's int8 stores are 32 neighbouring channels of one
+//     pixel: one 32-byte sector an instruction.
+//   Counted in SASS (cuobjdump -sass of the built library, chip_smoke.py
+//   phase 1; nvcc 12.8, sm_90a): the stride-1 int8 relu kernel's row loop
+//   is 351 instructions for 12 outputs (3 rows x 4 columns; the guarded
+//   store path of a ragged last column block included), so at most 29 an
+//   output, 3 of them dp4a and none a conversion.  The previous kernel was
+//   2,488 straight-line instructions for a thread's 16 outputs (every
+//   activation and output kind inlined): 530 IMAD and 472 SHF / PRMT, the
+//   byte-by-byte products alone about 27 an output.
+// Shapes: C % 16 == 0 and x on a 16-byte boundary (MobileNet's C are 32 ...
+// 1024, 144 = 9 x 16 among them; a 16-channel chunk leaves half the warp
+// idle).  Anything else, and images too wide for three staged rows, take
+// the one-channel-a-thread route (dw3x3_scalar_kernel).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 10,
+// PERF.md): 0.429 ms per MobileNet v1 forward and 0.575 per v2 against the
+// previous kernel's 0.849 and 1.048, 41-66% of the bound on the 56 and 112
+// pixel images, 18-45% on the 7 to 28 pixel ones.  The loads and the
+// compute of a block do not overlap (it stages, then computes).  Neither
+// fewer instructions an output (the activation and output kind as template
+// arguments) nor, in variants not kept, four channels a lane (a
+// 4-byte store for four outputs), more blocks an SM or a persistent
+// two-tile block (one band's copies in flight while the previous band is
+// computed) moved the large shapes: what holds them at half the bound is
+// not measured yet (no per-instruction profiler on the card).
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "int8_epilogue.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int VEC = 16;
+constexpr int CHUNK = 32;                // channels a chunk: one a lane
+constexpr int TILE_BYTES = 36 * 1024;    // staged input rows, at most
 
 struct DwParams {
   const int8_t* x;     // [N, H, W, C]
@@ -44,110 +96,209 @@ struct DwParams {
   float alpha;
   int out_kind;
   float inv_out_scale;
+  // the tiled route's plan (plan_tiles)
+  int TH;   // output rows a block
+  int R;    // output rows a warp's run
+  int nCB;  // four-column blocks of an output row
+  int TW;   // staged columns: input columns -1 .. TW - 2
+  int G;    // 32-channel chunks a block (a power of two)
+  int lgG;  // log2 G
 };
 
-__device__ __forceinline__ int sbyte(uint32_t word, int j) {
-  return static_cast<int>(static_cast<int8_t>((word >> (8 * j)) & 0xffu));
+// bytes b0 .. b3 (each in the low byte of its word) as one word
+__device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1, uint32_t b2,
+                                          uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040),
+                     0x5410);
 }
 
-// acc[4k + j] += x byte (4k + j) * w byte (4k + j), for the 16 lanes.
-__device__ __forceinline__ void mac16(int (&acc)[VEC], const uint4 xv,
-                                      const uint4 wv) {
-  const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
-  const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[4 * k + j] += sbyte(xs[k], j) * sbyte(ws[k], j);
+// The four windows of one staged input row: win[j] holds the three input
+// bytes under output column 4 cb + j in bytes 0 .. 2 (byte 3 meets a zero
+// weight).  `row` points at the row's first byte for this lane's window 0.
+template <int S>
+__device__ __forceinline__ void windows(const uint8_t* row, uint32_t (&win)[4]) {
+  constexpr int B = CHUNK;  // byte stride of one staged column
+  if (S == 1) {  // input columns 4 cb - 1 .. 4 cb + 4
+    const uint32_t p0 = pack4(row[0], row[B], row[2 * B], row[3 * B]);
+    const uint32_t p1 = __byte_perm(row[4 * B], row[5 * B], 0x0040);
+    win[0] = p0;
+    win[1] = __byte_perm(p0, p1, 0x4321);
+    win[2] = __byte_perm(p0, p1, 0x5432);
+    win[3] = __byte_perm(p0, p1, 0x6543);
+  } else {       // input columns 8 cb - 1 .. 8 cb + 7
+    const uint32_t p0 = pack4(row[0], row[B], row[2 * B], row[3 * B]);
+    const uint32_t p1 = pack4(row[4 * B], row[5 * B], row[6 * B], row[7 * B]);
+    const uint32_t p2 = row[8 * B];
+    win[0] = p0;
+    win[1] = __byte_perm(p0, p1, 0x5432);
+    win[2] = p1;
+    win[3] = __byte_perm(p1, p2, 0x5432);
+  }
 }
 
-// Output pixel (n, ho, wo) and channel chunk of flat thread index i.
-__device__ __forceinline__ void decompose(const DwParams& p, size_t i,
-                                          int chunks, int& n, int& ho, int& wo,
-                                          int& chunk) {
-  chunk = static_cast<int>(i % chunks);
-  size_t pix = i / chunks;
+template <int ACT>
+__device__ __forceinline__ float act_of(float y, float alpha) {
+  if (ACT == ak::ACT_RELU) return fmaxf(y, 0.0f);
+  if (ACT == ak::ACT_RELU6) return fminf(fmaxf(y, 0.0f), 6.0f);
+  if (ACT == ak::ACT_LEAKY) return y >= 0.0f ? y : __fmul_rn(y, alpha);
+  return y;
+}
+
+// The element type of output kind OUT (ak::OutKind), and y stored as it.
+template <int OUT>
+using OutT = typename std::conditional<
+    OUT == ak::OUT_S8, int8_t,
+    typename std::conditional<OUT == ak::OUT_F32, float, __nv_bfloat16>::type>::type;
+
+template <int OUT>
+__device__ __forceinline__ void put(OutT<OUT>* q, float y, float inv) {
+  if constexpr (OUT == ak::OUT_S8) *q = ak::requant(y, inv);
+  else if constexpr (OUT == ak::OUT_F32) *q = y;
+  else *q = __float2bfloat16_rn(y);
+}
+
+template <int S, int ACT, int OUT>
+__global__ void __launch_bounds__(THREADS) dw3x3_tiled(const DwParams p) {
+  // [G][rows][TW][CHUNK] (chunk-major, so a lane's column stride is CHUNK)
+  // for the block's work item: an image, a band of TH output rows and a
+  // group of G chunks
+  extern __shared__ __align__(16) uint8_t cur[];
+  const int groups_c = (p.C + CHUNK * p.G - 1) / (CHUNK * p.G);
+  const int bands = (p.Ho + p.TH - 1) / p.TH;
+  int w = blockIdx.x;
+  const int c0 = (w % groups_c) * CHUNK * p.G;
+  w /= groups_c;
+  const int ho0 = (w % bands) * p.TH;
+  const int n = w / bands;
+  const int the = min(p.TH, p.Ho - ho0);
+  const int rows_max = (p.TH - 1) * S + 3;
+
+  // stage the band: 16-byte pieces, zeros outside the image; piece q of a
+  // pixel is channels c0 + 16 q .. c0 + 16 q + 15, in chunk q / 2
+  {
+    const int lg_pieces = p.lgG + 1;  // 2 G pieces a pixel
+    const int rows = (the - 1) * S + 3;
+    const int ih0 = ho0 * S - 1;
+    for (int r = 0; r < rows; ++r) {
+      const int ih = ih0 + r;
+      const bool row_ok = ih >= 0 && ih < p.H;
+      const int8_t* xrow =
+          p.x + (static_cast<size_t>(n) * p.H + ih) * p.W * p.C + c0 - p.C;
+      for (int i = threadIdx.x; i < p.TW << lg_pieces; i += blockDim.x) {
+        const int q = i & ((1 << lg_pieces) - 1), col = i >> lg_pieces;
+        const bool ok = row_ok && col >= 1 && col <= p.W && c0 + 16 * q < p.C;
+        ak::cp16(cur + (((q >> 1) * rows_max + r) * p.TW + col) * CHUNK + 16 * (q & 1),
+                 ok ? xrow + col * p.C + 16 * q : p.x, ok);
+      }
+    }
+    ak::cp_commit();
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the warp's chunk g within the group (the warps are a multiple of G) and
+  // the lane's channel: weights as tap-row words, scale and bias, loaded
+  // while the copies land
+  const int g = warp & (p.G - 1);
+  const int c = c0 + CHUNK * g + lane;
+  const bool live = c < p.C;  // C % 32 == 16: half of the last chunk
+  uint32_t wk[3] = {0u, 0u, 0u};
+  float sc = 0.0f, bi = 0.0f;
+  if (live) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const uint8_t* wr = reinterpret_cast<const uint8_t*>(p.w) + 3 * dy * p.C + c;
+      wk[dy] = pack4(__ldg(wr), __ldg(wr + p.C), __ldg(wr + 2 * p.C), 0u);
+    }
+    sc = __ldg(p.scale + c);
+    if (p.bias) bi = __ldg(p.bias + c);
+  }
+  ak::cp_wait<0>();
+  __syncthreads();
+  if (!live) return;  // no barrier follows
+  const int groups = (the + p.R - 1) / p.R;
+  const int items = p.nCB * groups;
+  const int nw = (blockDim.x >> 5) >> p.lgG;  // warps on one chunk
+  const int rstride = p.TW * CHUNK;
+  const uint8_t* chunk_tile = cur + g * rows_max * rstride;
+  for (int it = warp >> p.lgG; it < items; it += nw) {
+    const int cb = it % p.nCB, grp = it / p.nCB;
+    const int r0 = grp * p.R, r1 = min(the, r0 + p.R);
+    const uint8_t* base = chunk_tile + (S * 4 * cb) * CHUNK + lane;
+    const int wo0 = 4 * cb;
+    const int nj = min(4, p.Wo - wo0);
+    // the output at (row r0, column wo0) of this lane's channel; the next
+    // row is out_row further on
+    OutT<OUT>* q = static_cast<OutT<OUT>*>(p.out) +
+                   ((static_cast<size_t>(n) * p.Ho + ho0 + r0) * p.Wo + wo0) *
+                       p.C + c;
+    const size_t out_row = static_cast<size_t>(p.Wo) * p.C;
+    // the next output row from the windows of its three tap rows
+    auto row_out = [&](const uint32_t (&w0)[4], const uint32_t (&w1)[4],
+                       const uint32_t (&w2)[4]) {
+      float y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // the signed form: int operands (the unsigned overload would read
+        // each byte as 0 .. 255)
+        int acc = __dp4a(static_cast<int>(w0[j]), static_cast<int>(wk[0]), 0);
+        acc = __dp4a(static_cast<int>(w1[j]), static_cast<int>(wk[1]), acc);
+        acc = __dp4a(static_cast<int>(w2[j]), static_cast<int>(wk[2]), acc);
+        // |acc| <= 9 * 127 * 127 = 145,161 < 2^22
+        y[j] = __fmul_rn(ak::small_int_to_float(acc), sc);
+        if (p.bias) y[j] = __fadd_rn(y[j], bi);
+        y[j] = act_of<ACT>(y[j], p.alpha);
+      }
+      if (nj == 4) {  // the common case: no per-output test
+#pragma unroll
+        for (int j = 0; j < 4; ++j) put<OUT>(q + j * p.C, y[j], p.inv_out_scale);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nj) put<OUT>(q + j * p.C, y[j], p.inv_out_scale);
+      }
+      q += out_row;
+    };
+    // three window rows in rotation (no register moves between rows)
+    uint32_t wa[4], wb[4], wc[4];
+    if (S == 1) {  // output row r: staged rows r, r + 1, r + 2
+      windows<S>(base + r0 * rstride, wa);
+      windows<S>(base + (r0 + 1) * rstride, wb);
+#pragma unroll 1
+      for (int r = r0; r < r1; r += 3) {
+        windows<S>(base + (r + 2) * rstride, wc);
+        row_out(wa, wb, wc);
+        if (r + 1 >= r1) break;
+        windows<S>(base + (r + 3) * rstride, wa);
+        row_out(wb, wc, wa);
+        if (r + 2 >= r1) break;
+        windows<S>(base + (r + 4) * rstride, wb);
+        row_out(wc, wa, wb);
+      }
+    } else {       // output row r: staged rows 2 r, 2 r + 1, 2 r + 2
+      windows<S>(base + 2 * r0 * rstride, wa);
+#pragma unroll 1
+      for (int r = r0; r < r1; r += 2) {
+        windows<S>(base + (2 * r + 1) * rstride, wb);
+        windows<S>(base + (2 * r + 2) * rstride, wc);
+        row_out(wa, wb, wc);
+        if (r + 1 >= r1) break;
+        windows<S>(base + (2 * r + 3) * rstride, wb);
+        windows<S>(base + (2 * r + 4) * rstride, wa);
+        row_out(wc, wb, wa);
+      }
+    }
+  }
+}
+
+// Output pixel (n, ho, wo) and channel c of flat thread index i.
+__device__ __forceinline__ void decompose(const DwParams& p, size_t i, int& n,
+                                          int& ho, int& wo, int& c) {
+  c = static_cast<int>(i % p.C);
+  size_t pix = i / p.C;
   wo = static_cast<int>(pix % p.Wo);
   pix /= p.Wo;
   ho = static_cast<int>(pix % p.Ho);
   n = static_cast<int>(pix / p.Ho);
-}
-
-__global__ void __launch_bounds__(THREADS) dw3x3_vec16_kernel(const DwParams p) {
-  const int chunks = p.C / VEC;
-  const size_t total = static_cast<size_t>(p.N) * p.Ho * p.Wo * chunks;
-  const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= total) return;
-  int n, ho, wo, chunk;
-  decompose(p, i, chunks, n, ho, wo, chunk);
-  const int c0 = chunk * VEC;
-
-  int acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0;
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int ih = ho * p.stride + dy - 1;
-    if (ih < 0 || ih >= p.H) continue;
-    const int8_t* row = p.x + (static_cast<size_t>(n) * p.H + ih) * p.W * p.C;
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int iw = wo * p.stride + dx - 1;
-      if (iw < 0 || iw >= p.W) continue;
-      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(
-          row + static_cast<size_t>(iw) * p.C + c0));
-      const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
-          p.w + (dy * 3 + dx) * p.C + c0));
-      mac16(acc, xv, wv);
-    }
-  }
-
-  float y[VEC];
-#pragma unroll
-  for (int q = 0; q < VEC / 4; ++q) {
-    const float4 s = __ldg(reinterpret_cast<const float4*>(p.scale + c0) + q);
-    const float sv[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[4 * q + j] = __fmul_rn(static_cast<float>(acc[4 * q + j]), sv[j]);
-    if (p.bias) {
-      const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + c0) + q);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[4 * q + j] = __fadd_rn(y[4 * q + j], bv[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) y[j] = ak::activate(y[j], p.act, p.alpha);
-
-  const size_t o = (((static_cast<size_t>(n) * p.Ho + ho) * p.Wo + wo) * p.C) + c0;
-  if (p.out_kind == ak::OUT_S8) {
-    uint32_t words[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        word |= static_cast<uint32_t>(static_cast<uint8_t>(
-                    ak::requant(y[4 * k + j], p.inv_out_scale))) << (8 * j);
-      words[k] = word;
-    }
-    *reinterpret_cast<uint4*>(static_cast<int8_t*>(p.out) + o) =
-        make_uint4(words[0], words[1], words[2], words[3]);
-  } else if (p.out_kind == ak::OUT_F32) {
-    float4* dst = reinterpret_cast<float4*>(static_cast<float*>(p.out) + o);
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q)
-      dst[q] = make_float4(y[4 * q], y[4 * q + 1], y[4 * q + 2], y[4 * q + 3]);
-  } else {
-    __nv_bfloat16 h[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) h[j] = __float2bfloat16_rn(y[j]);
-    uint4* dst = reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + o);
-    dst[0] = *reinterpret_cast<const uint4*>(h);
-    dst[1] = *reinterpret_cast<const uint4*>(h + 8);
-  }
 }
 
 // One output element per thread: any C, any alignment.
@@ -156,7 +307,7 @@ __global__ void __launch_bounds__(THREADS) dw3x3_scalar_kernel(const DwParams p)
   const size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
   if (i >= total) return;
   int n, ho, wo, c;
-  decompose(p, i, p.C, n, ho, wo, c);
+  decompose(p, i, n, ho, wo, c);
   int acc = 0;
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
@@ -177,8 +328,55 @@ __global__ void __launch_bounds__(THREADS) dw3x3_scalar_kernel(const DwParams p)
                 p.inv_out_scale);
 }
 
-bool aligned16(const void* q) {
-  return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+// The tiled route's plan: G chunks of 32 channels a block (more where the
+// image is narrow, so that a block's warps have work), TH output rows a
+// block (the most whose staged rows fit TILE_BYTES, evened out over the
+// image), R rows a warp's run (short enough that all 8 warps have work).
+// Returns the block's shared-memory bytes, or 0 where three staged rows of
+// one chunk do not fit (an image wider than about 370 pixels).
+int plan_tiles(DwParams& p) {
+  const int S = p.stride;
+  p.nCB = (p.Wo + 3) / 4;
+  p.TW = S * 4 * p.nCB + 2;
+  const int chunks = (p.C + CHUNK - 1) / CHUNK;
+  p.G = 1;
+  while (p.G < 8 && p.nCB * p.G < 8 && chunks % (2 * p.G) == 0 &&
+         3 * p.TW * CHUNK * 2 * p.G <= TILE_BYTES)
+    p.G *= 2;
+  p.lgG = p.G == 1 ? 0 : p.G == 2 ? 1 : p.G == 4 ? 2 : 3;
+  const int row_bytes = p.TW * CHUNK * p.G;
+  const int max_rows = TILE_BYTES / row_bytes;
+  if (max_rows < 3) return 0;
+  int th = min((max_rows - 3) / S + 1, p.Ho);
+  const int bands = (p.Ho + th - 1) / th;
+  p.TH = (p.Ho + bands - 1) / bands;
+  const int runs = (8 + p.nCB * p.G - 1) / (p.nCB * p.G);  // a column block's
+  p.R = max(1, (p.TH + runs - 1) / runs);
+  return ((p.TH - 1) * S + 3) * row_bytes;
+}
+
+template <int S, int ACT>
+int launch_tiled(const DwParams& p, int smem, int blocks, int threads,
+                 cudaStream_t st) {
+  // smem <= TILE_BYTES, under the 48 KB a launch may take without opting in
+  if (p.out_kind == ak::OUT_S8)
+    dw3x3_tiled<S, ACT, ak::OUT_S8><<<blocks, threads, smem, st>>>(p);
+  else if (p.out_kind == ak::OUT_F32)
+    dw3x3_tiled<S, ACT, ak::OUT_F32><<<blocks, threads, smem, st>>>(p);
+  else
+    dw3x3_tiled<S, ACT, ak::OUT_BF16><<<blocks, threads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_act(const DwParams& p, int smem, int blocks, int threads,
+               cudaStream_t st) {
+  switch (p.act) {
+    case ak::ACT_RELU: return launch_tiled<S, ak::ACT_RELU>(p, smem, blocks, threads, st);
+    case ak::ACT_RELU6: return launch_tiled<S, ak::ACT_RELU6>(p, smem, blocks, threads, st);
+    case ak::ACT_LEAKY: return launch_tiled<S, ak::ACT_LEAKY>(p, smem, blocks, threads, st);
+    default: return launch_tiled<S, ak::ACT_NONE>(p, smem, blocks, threads, st);
+  }
 }
 
 }  // namespace
@@ -190,6 +388,9 @@ extern "C" int ak_depthwise3x3_int8(const void* x, const void* w,
                                     float alpha, float inv_out_scale,
                                     void* stream) {
   if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (act != ak::ACT_NONE && act != ak::ACT_RELU && act != ak::ACT_RELU6 &&
+      act != ak::ACT_LEAKY)
+    return static_cast<int>(cudaErrorInvalidValue);
   DwParams p{};
   p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
@@ -209,15 +410,23 @@ extern "C" int ak_depthwise3x3_int8(const void* x, const void* w,
   p.inv_out_scale = inv_out_scale;
   if (N == 0 || H == 0 || W == 0 || C == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = C % VEC == 0 && aligned16(x) && aligned16(w) &&
-                   aligned16(scale) && aligned16(bias) && aligned16(out);
-  const size_t pixels = static_cast<size_t>(N) * p.Ho * p.Wo;
-  const size_t threads = vec ? pixels * (C / VEC) : pixels * C;
+  const int smem = C % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                       ? plan_tiles(p) : 0;
+  if (smem > 0) {
+    const long long work = static_cast<long long>(N) *
+                           ((p.Ho + p.TH - 1) / p.TH) *
+                           ((C + CHUNK * p.G - 1) / (CHUNK * p.G));
+    if (work > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    // warps: a multiple of G, each chunk's share at most its items
+    const int items = p.nCB * ((p.TH + p.R - 1) / p.R);
+    const int threads = 32 * p.G * min(THREADS / 32 / p.G, items);
+    return stride == 1
+               ? launch_act<1>(p, smem, static_cast<int>(work), threads, s)
+               : launch_act<2>(p, smem, static_cast<int>(work), threads, s);
+  }
+  const size_t threads = static_cast<size_t>(N) * p.Ho * p.Wo * C;
   const size_t blocks = (threads + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (vec)
-    dw3x3_vec16_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(p);
-  else
-    dw3x3_scalar_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(p);
+  dw3x3_scalar_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

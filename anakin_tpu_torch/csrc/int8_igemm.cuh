@@ -170,16 +170,6 @@ __device__ __forceinline__ void epilogue_vec4(const Params& p, int m, int n,
   }
 }
 
-// mma.sync m16n8k32 s8 (bottleneck_int8.cu's MMA)
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 namespace igemm {
 
 constexpr int BM = 128;       // rows of a block tile: two 64-row warpgroups

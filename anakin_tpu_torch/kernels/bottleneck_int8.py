@@ -19,21 +19,21 @@ tensor `bottleneck_int8` launches the fused Hopper kernel in
 design does about that), which equals the unfused chain `matmul_int8 ->
 conv3x3_int8 -> matmul_int8` bit for bit; on a CPU tensor it runs
 `bottleneck_int8_plain`.  The kernel takes C and P that are multiples of 64
-(ResNet's identity blocks: C = 4 P, P 64 ... 512).  Each call transposes
-the three weights on the card first, with a second, small kernel; one count
-in `bottleneck_int8.launches` covers both launches.
+(ResNet's identity blocks: C = 4 P, P 64 ... 512).  A call is one launch,
+counted in `bottleneck_int8.launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from . import _build
 from .conv_int8 import conv3x3_int8_plain
-from .matmul_int8 import _OUT_KINDS, matmul_int8_plain, scale_row
+from .matmul_int8 import (_OUT_KINDS, PreparedB, as_prepared,
+                          matmul_int8_plain, scale_row)
 
 __all__ = ["bottleneck_int8", "bottleneck_int8_plain", "identity_block"]
 
@@ -62,24 +62,50 @@ def bottleneck_int8_plain(x, wa, wsa, wb, wsb, wc, wsc, ba=None, bb=None,
     return y.reshape(N, H, W, C)
 
 
+Weight = Union[torch.Tensor, PreparedB]
+
+
+def _kn(w: Weight):
+    """A weight's (K, N), whether raw or prepared; None for a raw weight
+    that is not 2-D (the caller names the shape it wanted)."""
+    if isinstance(w, PreparedB):
+        return (w.k, w.n)
+    return tuple(w.shape) if w.dim() == 2 else None
+
+
+def _raw(w: Weight, shape) -> torch.Tensor:
+    """The weight itself in `shape`: a prepared copy is checked against its
+    weight's version counter and read back as [K, N]."""
+    if isinstance(w, PreparedB):
+        w.check()
+        return w.kn().reshape(shape)
+    return w
+
+
 def _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype):
-    if any(t.dtype != torch.int8 for t in (x, wa, wb, wc)):
+    ts = [w.t if isinstance(w, PreparedB) else w for w in (wa, wb, wc)]
+    if any(t.dtype != torch.int8 for t in [x] + ts):
         raise TypeError(f"bottleneck_int8 takes int8 x and weights, got "
-                        f"{x.dtype}, {wa.dtype}, {wb.dtype}, {wc.dtype}")
-    if x.dim() != 4 or wa.dim() != 2 or wa.shape[0] != x.shape[3]:
+                        f"{x.dtype}, {ts[0].dtype}, {ts[1].dtype}, "
+                        f"{ts[2].dtype}")
+    kn_a = _kn(wa)
+    if x.dim() != 4 or kn_a is None or kn_a[0] != x.shape[3]:
         raise ValueError(f"bottleneck_int8 shapes x {tuple(x.shape)}, wa "
                          f"{tuple(wa.shape)}")
-    C, P = wa.shape
-    if tuple(wb.shape) != (3, 3, P, P) or tuple(wc.shape) != (P, C):
+    C, P = kn_a
+    shape_b = tuple(wb.shape)
+    b_ok = (shape_b[:3] == (3, 3, P) and wb.n == P
+            if isinstance(wb, PreparedB) else shape_b == (3, 3, P, P))
+    if not b_ok or _kn(wc) != (P, C):
         raise ValueError(f"bottleneck_int8 needs wb [3, 3, {P}, {P}] and wc "
-                         f"[{P}, {C}], got {tuple(wb.shape)}, {tuple(wc.shape)}")
+                         f"[{P}, {C}], got {shape_b}, {tuple(wc.shape)}")
     for name, v, n in (("wsa", wsa, P), ("wsb", wsb, P), ("wsc", wsc, C),
                        ("ba", ba, P), ("bb", bb, P), ("bc", bc, C)):
         if v is not None and tuple(v.shape) != (n,):
             raise ValueError(f"bottleneck_int8: {name} must be [{n}], got "
                              f"{tuple(v.shape)}")
     if any(t is not None and t.device != x.device
-           for t in (wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)):
+           for t in ts + [wsa, wsb, wsc, ba, bb, bc]):
         raise ValueError("bottleneck_int8 operands on different devices")
     if out_scale is None and out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype {out_dtype} not supported")
@@ -88,7 +114,7 @@ def _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bottleneck_int8")
     fn = lib.ak_bottleneck_int8
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -100,8 +126,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def bottleneck_int8(x: torch.Tensor, wa: torch.Tensor, wsa: torch.Tensor,
-                    wb: torch.Tensor, wsb: torch.Tensor, wc: torch.Tensor,
+def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
+                    wb: Weight, wsb: torch.Tensor, wc: Weight,
                     wsc: torch.Tensor, ba: Optional[torch.Tensor] = None,
                     bb: Optional[torch.Tensor] = None,
                     bc: Optional[torch.Tensor] = None, *, in_scale: float,
@@ -109,26 +135,28 @@ def bottleneck_int8(x: torch.Tensor, wa: torch.Tensor, wsa: torch.Tensor,
                     out_scale: Optional[float] = None,
                     out_dtype=torch.float32) -> torch.Tensor:
     """The fused identity bottleneck; returns [N, H, W, C] int8 when
-    `out_scale` is given, else `out_dtype`."""
+    `out_scale` is given, else `out_dtype`.  wa, wb and wc may be raw or
+    prepared (`prepare_b`)."""
     _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype)
     kw = dict(in_scale=in_scale, a_scale=a_scale, b_scale=b_scale,
               res_scale=res_scale, out_scale=out_scale, out_dtype=out_dtype)
-    if _build.runs_plain(x.device, "bottleneck_int8"):
-        return bottleneck_int8_plain(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc,
-                                     **kw)
     N, H, W, C = x.shape
-    P = wa.shape[1]
+    P = _kn(wa)[1]
+    if _build.runs_plain(x.device, "bottleneck_int8"):
+        return bottleneck_int8_plain(
+            x, _raw(wa, (C, P)), wsa, _raw(wb, (3, 3, P, P)), wsb,
+            _raw(wc, (P, C)), wsc, ba, bb, bc, **kw)
+    # [N][K] with K contiguous (K = C, 9 P, P: multiples of 16, so no pad)
+    wa_, wb_, wc_ = (as_prepared(w).t for w in (wa, wb, wc))
     lib = _lib()
     with torch.cuda.device(x.device):
-        x_, wa_, wb_, wc_ = (_aligned(t) for t in (x, wa, wb, wc))
+        x_ = _aligned(x)
         sa, sb, sc = (scale_row(s, v).contiguous() for s, v in
                       ((wsa, in_scale), (wsb, a_scale), (wsc, b_scale)))
         biases = [None if v is None else _aligned(v.to(torch.float32))
                   for v in (ba, bb, bc)]
         odt = torch.int8 if out_scale is not None else out_dtype
         out = torch.empty((N, H, W, C), dtype=odt, device=x.device)
-        ws = torch.empty(2 * C * P + 9 * P * P, dtype=torch.int8,
-                         device=x.device)  # the weights, transposed
 
         def ptr(t):
             return ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -137,7 +165,7 @@ def bottleneck_int8(x: torch.Tensor, wa: torch.Tensor, wsa: torch.Tensor,
         rc = lib.ak_bottleneck_int8(
             ptr(x_), ptr(wa_), ptr(sa), ptr(biases[0]), ptr(wb_), ptr(sb),
             ptr(biases[1]), ptr(wc_), ptr(sc), ptr(biases[2]), ptr(out),
-            ptr(ws), _OUT_KINDS[odt], N, H, W, C, P, 1.0 / float(a_scale),
+            _OUT_KINDS[odt], N, H, W, C, P, 1.0 / float(a_scale),
             1.0 / float(b_scale), float(res_scale),
             0.0 if out_scale is None else 1.0 / float(out_scale),
             ctypes.c_void_p(stream))
@@ -155,24 +183,30 @@ def bottleneck_int8(x: torch.Tensor, wa: torch.Tensor, wsa: torch.Tensor,
 bottleneck_int8.launches = 0
 
 
-def identity_block(block, params, x: torch.Tensor) -> torch.Tensor:
+def identity_block(block, params, x: torch.Tensor,
+                   prepared: Optional[dict] = None) -> torch.Tensor:
     """`bottleneck_int8` on one (A, B, C) node triple of
     `models.resnet.identity_bottlenecks`, with the graph's params as a `Net`
     holds them (`Net.params`: on its device, float params in its compute
-    dtype) and the block's int8 input x.  Gives what the net gives on C's
-    output edge."""
+    dtype) and the block's int8 input x.  `prepared`: the `Net`'s prepared
+    weights by node name (`Net.prepared`), handed to the kernel as they are;
+    without it the CUDA kernel prepares the three weights for this call.
+    Gives what the net gives on C's output edge."""
     a, b, c = block
-
-    def weights(node, rows, cols):
-        ws = [params[e] for e in node.inputs[1:3]]
-        bias = params[node.inputs[3]] if node.attr("has_bias") else None
-        return ws[0].reshape(rows, cols), ws[1], bias
-
     C, P = x.shape[3], params[a.inputs[1]].shape[3]
-    wa, wsa, ba = weights(a, C, P)
-    wb, wsb, bb = params[b.inputs[1]], params[b.inputs[2]], (
-        params[b.inputs[3]] if b.attr("has_bias") else None)
-    wc, wsc, bc = weights(c, P, C)
+
+    def weights(node, shape):
+        w = params[node.inputs[1]]
+        if prepared is not None:
+            w = prepared[node.name]
+        elif w.shape != shape:
+            w = w.reshape(shape)
+        bias = params[node.inputs[3]] if node.attr("has_bias") else None
+        return w, params[node.inputs[2]], bias
+
+    wa, wsa, ba = weights(a, (C, P))
+    wb, wsb, bb = weights(b, (3, 3, P, P))
+    wc, wsc, bc = weights(c, (P, C))
     out_scale = c.attr("out_scale")
     return bottleneck_int8(
         x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc,

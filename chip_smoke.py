@@ -13,12 +13,16 @@ package's suite configuration: random weights from seed 0, scales from
 `calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
 net); then, on the same LLM weights and ResNet net, the distinct-position
 w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
-through the fused bottleneck_int8.  About 6 minutes on an H100, of which
-about 80 s are nvcc (the int8 core's sources are the slowest).
+through the fused bottleneck_int8.  About 3 minutes as a command on an
+H100, of which about 35 s are nvcc (the int8 core's sources are the
+slowest; all sources build at once).
 Phases:
 
   1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
-              per source, all at once) and print what ptxas says;
+              per source, all at once) and print what ptxas says; then the
+              SASS of the depthwise and fused-block kernels (`cuobjdump
+              -sass`): each kernel's instructions and its loops' sizes and
+              opcodes, from which the instructions an output are counted;
   2. resnet   one forward through `Net.prediction` with every kernel's
               launch count set to 0 just before and read just after:
               matmul_int8 must launch 40 times and conv3x3_int8 13 times,
@@ -86,8 +90,9 @@ Phases:
               float32 and bf16 outputs, leaky_relu, no bias and a misaligned
               x: int8 outputs equal,
               float outputs within rtol 1e-6; timed by CUDA-graph replay
-              with x rotated out of L2, beside its bound, its plain version
-              and, as context only, cuDNN's bf16 grouped conv;
+              with x rotated out of L2, beside its bound (each shape's share
+              of it printed and in the JSON), its plain version and, as
+              context only, cuDNN's bf16 grouped conv;
  11. cpu/gpu  v1 and v2 at b2 from one graph: `calibrate` scales on the
               card and the CPU within rtol 1e-4; the int8 net on both, node
               by node on the CPU's inputs (int8 kernel outputs equal, the
@@ -121,14 +126,17 @@ Phases:
               over the stages: 1x1 relu -> 3x3 relu -> 1x1 + the block's
               input, `models.identity_bottlenecks`), each through
               `bottleneck_int8` from the net's tapped input with the net's
-              params, the counts set to 0 just before and read just after
-              (12 launches, nothing else): outputs equal to the net's block
-              outputs (int8 bit for bit, the last block's float32 within
-              rtol 1e-6); then the kernel against its plain version at the
-              four stage shapes, no bias, float32 and bf16 outputs, and
-              H, W not a multiple of the band: int8 equal, float within
-              rtol 1e-6; timed by CUDA-graph replay with x rotated out of
-              L2, beside its bound, its plain version and the unfused
+              params and the weights the net prepared when it was built
+              (`net.prepared`), the counts set to 0 just before and read
+              just after (12 launches, nothing else, and no weight
+              prepared): outputs equal to the net's block outputs (int8 bit
+              for bit, the last block's float32 within rtol 1e-6); then the
+              kernel, on prepared weights and on raw ones, against its
+              plain version at the four stage shapes, no bias, float32 and
+              bf16 outputs, and H, W not a multiple of the band: int8 equal,
+              float within rtol 1e-6; timed by CUDA-graph replay with x
+              rotated out of L2, beside its bound (each shape's share of it
+              printed and in the JSON), its plain version and the unfused
               chain matmul_int8 -> conv3x3_int8 -> matmul_int8 on the same
               block (PyTorch has no int8 convolution on CUDA: no library
               call).
@@ -186,6 +194,82 @@ def gpu_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def sass_loops(lib_path: str):
+    """What `cuobjdump -sass` shows of each kernel in a built library:
+    {function: (instructions, [loops])}, a loop being (its instructions,
+    {opcode: count}) from a backward branch's target to the branch, nested
+    loops counted with their own; for a kernel with no loop (straight-line
+    code), the whole function as its one entry."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run(
+        [os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump"),
+         "-sass", lib_path], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:  # a label (nvdisasm's form)
+            funcs[name][1][m.group(1)] = len(funcs[name][0])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:  # an address is a label too (cuobjdump branches to addresses)
+            funcs[name][1]["0x" + m.group(1).lstrip("0").lower()] = len(
+                funcs[name][0])
+            funcs[name][0].append(m.group(2))
+    out = {}
+    for name, (ins, labels) in funcs.items():
+        back = []  # (target index, branch index) of each backward branch
+        for i, t in enumerate(ins):
+            m = re.search(r"\bBRA\S*\s+(?:`\((\.L_x_\d+)\)|0x0*([0-9a-f]+))",
+                          t)
+            if not m:
+                continue
+            target = m.group(1) or "0x" + m.group(2).lower()
+            if target in labels and labels[target] < i:
+                back.append((labels[target], i))
+        loops = []
+        for t0, i in sorted(set(back)):
+            if i - t0 < 3:
+                continue  # the trap loop at the end
+            ops = {}
+            for t in ins[t0:i + 1]:
+                op = next(w for w in t.split() if not w.startswith("@"))
+                op = op.split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+            loops.append((i + 1 - t0, ops))
+        if not loops:  # straight-line code: the whole function's opcodes
+            ops = {}
+            for t in ins:
+                op = next(w for w in t.split() if not w.startswith("@"))
+                ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+            loops.append((len(ins), ops))
+        out[name] = (len(ins), loops)
+    return out
+
+
+def log_sass(lib_path: str, tag: str):
+    """Phase 1's SASS lines for one library: each kernel's instruction
+    count and its innermost loops' sizes and opcodes."""
+    res = {}
+    for name, (n, loops) in sass_loops(lib_path).items():
+        res[name] = dict(instructions=n, loops=loops)
+        log(f"[sass] {tag} {name[:100]}: {n} instructions")
+        for size, ops in loops:
+            top = sorted(ops.items(), key=lambda kv: -kv[1])
+            log(f"[sass]   {'loop' if size < n else 'all'} of {size}: " +
+                " ".join(f"{k} {v}" for k, v in top))
+    return res
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, windows: int = 5) -> float:
@@ -1387,7 +1471,7 @@ def check_dw(cfg, gen, misaligned=False):
     return dict(kernel="depthwise3x3_int8", **cfg, misaligned=misaligned,
                 ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=None, cudnn_bf16_grouped_conv_ms=cudnn_ms,
-                bound_ms=bms, bound_by=by)
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
 
 
 # extra depthwise cases the path does not give: ragged C, odd H/W at s1
@@ -1443,7 +1527,8 @@ def dw_kernels(report, path_calls):
             f"out={r['out']}{' misaligned' if misaligned else ''} "
             f"x{r['calls']} err={r['max_abs_err']:g} ms={r['ms']:.4f} "
             f"plain={r['plain_ms']:.3f} bound={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) lib=none cudnn-bf16-grouped-conv={cud}")
+            f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of it) "
+            f"lib=none cudnn-bf16-grouped-conv={cud}")
     for name in per_model:
         rows = [r for r in results if r["calls"][name]]
 
@@ -1452,7 +1537,9 @@ def dw_kernels(report, path_calls):
 
         log(f"[kernel] depthwise3x3_int8 per {name} forward: "
             f"{sum(r['calls'][name] for r in rows)} calls, ms={total('ms'):.4f} "
-            f"bound={total('bound_ms'):.4f} plain={total('plain_ms'):.3f}")
+            f"bound={total('bound_ms'):.4f} "
+            f"({100 * total('bound_ms') / total('ms'):.1f}% of it) "
+            f"plain={total('plain_ms'):.3f}")
         report.setdefault(name, {})["dw_kernel_ms"] = total("ms")
         report[name]["dw_bound_ms"] = total("bound_ms")
         report[name]["dw_plain_ms"] = total("plain_ms")
@@ -1680,6 +1767,7 @@ def check_bottleneck(cfg, gen):
         kw["out_dtype"] = getattr(torch, cfg["out"])
     weights = (wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)
     pa, pb, pc = (prepare_b(t) for t in (wa, wb, wc))  # as a Net holds them
+    prepared = (pa, wsa, pb, wsb, pc, wsc, ba, bb, bc)
 
     def chain(x_):
         rows = x_.reshape(-1, c)
@@ -1696,11 +1784,12 @@ def check_bottleneck(cfg, gen):
 
     wrappers = (bottleneck_int8, matmul_int8, conv3x3_int8)
     launches = [f.launches for f in wrappers]
-    got = bottleneck_int8(x, *weights, **kw)
+    got = bottleneck_int8(x, *prepared, **kw)
+    got_raw = bottleneck_int8(x, *weights, **kw)  # prepared for this call
     want = bottleneck_int8_plain(x, *weights, **kw)
     unfused = chain(x)
     torch.cuda.synchronize()
-    chain_equal = torch.equal(got, unfused)
+    chain_equal = torch.equal(got, unfused) and torch.equal(got, got_raw)
     if got.dtype == torch.int8:
         err = float((got.int() - want.int()).abs().max())
         ok = err == 0
@@ -1711,7 +1800,7 @@ def check_bottleneck(cfg, gen):
     n_copies = max(2, -(-100 * 2 ** 20 // x.numel()))
     copies = [(x.clone(),) for _ in range(n_copies)]
     iters = n_copies * -(-20 // n_copies)
-    ms = graph_ms(rotating(lambda x_: bottleneck_int8(x_, *weights, **kw),
+    ms = graph_ms(rotating(lambda x_: bottleneck_int8(x_, *prepared, **kw),
                            copies), iters=iters)
     unfused_ms = graph_ms(rotating(chain, copies), iters=iters)
     plain_ms = graph_ms(rotating(lambda x_: bottleneck_int8_plain(
@@ -1722,13 +1811,15 @@ def check_bottleneck(cfg, gen):
     return dict(kernel="bottleneck_int8", **cfg, ok=ok and chain_equal,
                 max_abs_err=err, unfused_chain_equal=chain_equal, ms=ms,
                 plain_ms=plain_ms, unfused_chain_ms=unfused_ms,
-                library_ms=None, bound_ms=bms, bound_by=by)
+                library_ms=None, bound_ms=bms, bound_by=by,
+                share_of_bound=bms / ms)
 
 
 def bottleneck_phase(report, card, resnet):
     """Phase 14: the 12 identity blocks of phase 2's ResNet-50 b128 net
     through bottleneck_int8, then the kernel against its plain version."""
     from anakin_tpu_torch.kernels.bottleneck_int8 import identity_block
+    from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
     from anakin_tpu_torch.models import identity_bottlenecks
     from anakin_tpu_torch.runtime.net import build_forward
 
@@ -1742,14 +1833,19 @@ def bottleneck_phase(report, card, resnet):
     with torch.inference_mode():
         taps = fwd(net.params, {"input": x})
         reset_counts()
-        ys = [identity_block(b, net.params, taps[b[0].inputs[0]])
+        prepared_before = prepare_b.calls
+        ys = [identity_block(b, net.params, taps[b[0].inputs[0]],
+                             prepared=net.prepared)
               for b in blocks]
         torch.cuda.synchronize()
     counts = read_counts()
-    log(f"[bottleneck] launches over the {len(blocks)} identity blocks: {counts}")
-    if counts != dict(no_launches(), bottleneck_int8=len(blocks)):
-        raise AssertionError(f"expected {len(blocks)} bottleneck_int8 launches, "
-                             f"got {counts}")
+    n_prepared = prepare_b.calls - prepared_before
+    log(f"[bottleneck] launches over the {len(blocks)} identity blocks: "
+        f"{counts}; weights prepared {n_prepared}")
+    if counts != dict(no_launches(), bottleneck_int8=len(blocks)) or n_prepared:
+        raise AssertionError(f"expected {len(blocks)} bottleneck_int8 launches "
+                             f"and no weight prepared, got {counts}, "
+                             f"{n_prepared} prepared")
     calls, worst = {}, 0.0
     for (a, _, c), y in zip(blocks, ys):
         want = taps[c.outputs[0]]
@@ -1776,6 +1872,7 @@ def bottleneck_phase(report, card, resnet):
     log(f"[bottleneck] all {len(blocks)} blocks equal the net's block outputs "
         f"(int8 bit for bit; float max abs diff {worst:g})")
     report["bottleneck"] = dict(blocks=len(blocks), launches=counts,
+                                weights_prepared=n_prepared,
                                 float_max_abs_diff=worst)
     del taps, ys
 
@@ -1792,7 +1889,8 @@ def bottleneck_phase(report, card, resnet):
             f"err={r['max_abs_err']:g} chain-equal={r['unfused_chain_equal']} "
             f"ms={r['ms']:.4f} unfused-chain={r['unfused_chain_ms']:.4f} "
             f"plain={r['plain_ms']:.3f} bound={r['bound_ms']:.4f} "
-            f"({r['bound_by']}) lib=none")
+            f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of it) "
+            f"lib=none")
     path = [r for r in results if r["calls_per_run"]]
 
     def total(key):
@@ -1800,7 +1898,9 @@ def bottleneck_phase(report, card, resnet):
 
     log(f"[kernel] bottleneck_int8 over the 12 blocks: ms={total('ms'):.4f} "
         f"unfused-chain={total('unfused_chain_ms'):.4f} "
-        f"bound={total('bound_ms'):.4f} plain={total('plain_ms'):.3f}")
+        f"bound={total('bound_ms'):.4f} "
+        f"({100 * total('bound_ms') / total('ms'):.1f}% of it) "
+        f"plain={total('plain_ms'):.3f}")
     report["bottleneck"].update(ms=total("ms"), bound_ms=total("bound_ms"),
                                 unfused_chain_ms=total("unfused_chain_ms"),
                                 plain_ms=total("plain_ms"))
@@ -1844,6 +1944,10 @@ def main(argv) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+    # the instructions the depthwise and fused-block kernels spend, counted
+    # in their SASS
+    for name in ("depthwise3x3_int8", "bottleneck_int8"):
+        report["sass_" + name] = log_sass(built[name][0], name)
 
     if args.kernels_only:
         cfg = TransformerConfig(**LLM_CFG)

@@ -37,6 +37,7 @@ from anakin_tpu_torch.graph.ir import topological_order
 from anakin_tpu_torch.kernels import conv3x3_int8, matmul_int8
 from anakin_tpu_torch.kernels.bottleneck_int8 import (bottleneck_int8,
                                                       identity_block)
+from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
 from anakin_tpu_torch.models import identity_bottlenecks
 
 from test_torch_kernels import _Elsewhere
@@ -130,6 +131,49 @@ def test_bottleneck_equals_unfused_chain(rng, H, W, C, P, bias, out):
     assert torch.equal(got, want.reshape(got.shape))
 
 
+@pytest.mark.parametrize("H,W,C,P,bias,out", CASES)
+def test_bottleneck_takes_prepared_weights(rng, H, W, C, P, bias, out):
+    """wa, wb and wc as `prepare_b` copies (the [N][K] layout the CUDA
+    kernel reads, as a Net holds them): equal to the raw-weight call, and
+    to the Pallas kernel in interpret mode within the module's tolerance."""
+    arrays = _block_inputs(rng, H, W, C, P, bias)
+    kw_t, kw_j = _out_kw(out)
+    x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc = _torch(arrays)
+    raw = bottleneck_int8(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, **SCALES,
+                          **kw_t)
+    got = bottleneck_int8(x, prepare_b(wa), wsa, prepare_b(wb), wsb,
+                          prepare_b(wc), wsc, ba, bb, bc, **SCALES, **kw_t)
+    assert got.dtype == raw.dtype and torch.equal(got, raw)
+    want = jax_bottleneck(*_jax(arrays), **SCALES, **kw_j, interpret=True)
+    _near_pallas(got, want)
+
+
+def test_bottleneck_refuses_a_changed_prepared_weight(rng):
+    """A prepared copy remembers its weight's version counter: once the
+    weight is changed in place, the call raises instead of computing with
+    the stale copy."""
+    x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc = _torch(
+        _block_inputs(rng, 8, 8, 128, 64, True))
+    pa, pb, pc = prepare_b(wa), prepare_b(wb), prepare_b(wc)
+    bottleneck_int8(x, pa, wsa, pb, wsb, pc, wsc, ba, bb, bc, **SCALES)
+    wb[0, 0, 0, 0] += 1
+    with pytest.raises(RuntimeError, match="changed in place"):
+        bottleneck_int8(x, pa, wsa, pb, wsb, pc, wsc, ba, bb, bc, **SCALES)
+
+
+def test_bottleneck_prepared_on_meta_gives_shapes():
+    """Prepared weights on the meta device (shape inference): a meta result
+    of the output's shape and type, and no launch."""
+    args = _zeros(H=5, W=7, device="meta")
+    for i in (1, 3, 5):
+        args[i] = prepare_b(args[i])
+    launches = bottleneck_int8.launches
+    y = bottleneck_int8(*args, **SCALES, out_scale=0.5)
+    assert y.device.type == "meta" and y.dtype == torch.int8
+    assert tuple(y.shape) == (1, 5, 7, 64)
+    assert bottleneck_int8.launches == launches
+
+
 # ------------------------------------------------------------ ResNet-50
 
 @pytest.fixture(scope="module")
@@ -191,6 +235,25 @@ def test_identity_blocks_equal_the_net(resnet, precision):
         assert torch.equal(got, want), c.name
     assert taps[blocks[-1][2].outputs[0]].dtype == torch.float32
     assert bottleneck_int8.launches == launches  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_identity_blocks_take_the_nets_prepared_weights(resnet, precision):
+    """`identity_block(..., prepared=net.prepared)` hands the kernel the
+    copies the Net made for nodes A, B and C when it was built: each block
+    equals the net's own block output, and no weight is prepared again."""
+    g = resnet["g"]
+    edges = [e for n in topological_order(g) for e in n.outputs]
+    net = pt.Net(g, precision=precision, device="cpu", tap_edges=edges)
+    taps = net.prediction({"input": resnet["x"]})
+    calls = prepare_b.calls
+    for block in identity_bottlenecks(g):
+        a, _, c = block
+        got = identity_block(block, net.params, taps[a.inputs[0]],
+                             prepared=net.prepared)
+        want = taps[c.outputs[0]]
+        assert got.dtype == want.dtype and torch.equal(got, want), c.name
+    assert prepare_b.calls == calls
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
