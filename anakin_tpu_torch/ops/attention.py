@@ -15,8 +15,8 @@ rows below the length are read); otherwise the dense path runs.
 The decode op writes the new cache row IN PLACE into the cache tensors it
 is given and returns them: the JAX op returns new arrays, but a copy of a
 1B-class cache per step would cost more device traffic than the step's
-weights.  A caller that keeps the old caches feeds copies.  `mha_verify`
-waits for the speculative-decoding slice.
+weights.  A caller that keeps the old caches feeds copies.  `mha_verify`,
+the decode op over a chunk of T tokens, writes its T rows in place too.
 """
 
 from __future__ import annotations
@@ -228,4 +228,72 @@ def mha_decode(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     p_att = torch.softmax(s, dim=-1)
     with full_fp32():
         o = torch.einsum("bgrk,bgkd->bgrd", p_att, v_read).reshape(B, H, 1, D)
+    return [_out_project(o, wo, x), ck, cv]
+
+
+def _write_chunk(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                 clamp: bool) -> torch.Tensor:
+    """Write row b's chunk `rows` [B, Hkv, T, D] at positions pos[b] ..
+    pos[b] + T - 1 of `cache` [B, Hkv, Smax, D], in place, without a host
+    sync.  clamp=True moves a chunk that would pass the cache back so that
+    it ends on its last row (`dynamic_update_slice`); clamp=False is the
+    one-hot blend: every cache row takes the chunk row at its position, if
+    any, so the rows at or past the cache are dropped."""
+    B, Smax, T = cache.shape[0], cache.shape[2], rows.shape[2]
+    p = pos.to(torch.int64)
+    if clamp:
+        idx = (torch.clamp(p, 0, Smax - T)[:, None]
+               + torch.arange(T, device=cache.device)[None])            # [B, T]
+        b = torch.arange(B, device=cache.device)[:, None]
+        cache[b, :, idx, :] = rows.permute(0, 2, 1, 3)
+        return cache
+    t = torch.arange(Smax, device=cache.device)[None] - p[:, None]      # [B, S]
+    hit = (t >= 0) & (t < T)
+    g = torch.gather(rows, 2, torch.clamp(t, 0, T - 1)[:, None, :, None]
+                     .expand(B, rows.shape[1], Smax, rows.shape[3]))
+    return cache.copy_(torch.where(hit[:, None, :, None], g, cache))
+
+
+@register("mha_verify")
+def mha_verify(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Chunk-verify attention: T tokens at positions pos..pos+T-1 against
+    the KV cache (speculative verify, chunked prefill).  `mha_decode` for
+    T tokens.
+
+    inputs: x [B,T,E], wq, wk, wv, wo, cache_k [B,Hkv,Smax,D], cache_v,
+    pos [B] int32 (the position of the chunk's first token).  outputs: y
+    [B,T,E], cache_k, cache_v (the inputs, rows pos..pos+T-1 written in
+    place).  attr `cache_update`: "rows" writes each row's chunk clamped to
+    end inside the cache; "blend" (default) drops the rows at or past it.
+    Token t attends the rows up to its own position.
+    """
+    x, wq, wk, wv, wo, cache_k, cache_v, pos = xs
+    B, T, E = x.shape
+    H, Hkv, D = _heads(node, wq)
+    Smax = cache_k.shape[2]
+    positions = (pos.to(torch.int32)[:, None]
+                 + torch.arange(T, dtype=torch.int32, device=x.device)[None])
+    q, k, v = _qkv(node, x, wq, wk, wv, positions)
+    kv_int8 = node.attr("kv_cache_dtype") == "int8"
+    if kv_int8:
+        ks, vs = float(node.attr("k_scale")), float(node.attr("v_scale"))
+        rk, rv = _quantize_kv(k, ks), _quantize_kv(v, vs)
+    else:
+        rk, rv = k.to(cache_k.dtype), v.to(cache_v.dtype)
+    clamp = node.attr("cache_update", "blend") == "rows"
+    ck = _write_chunk(cache_k, rk, pos, clamp)
+    cv = _write_chunk(cache_v, rv, pos, clamp)
+    k_read, v_read = ck.to(torch.float32), cv.to(torch.float32)
+    if kv_int8:
+        k_read, v_read = k_read * ks, v_read * vs
+    qg = q.reshape(B, Hkv, H // Hkv, T, D).to(torch.float32)
+    with full_fp32():
+        s = torch.einsum("bgrtd,bgsd->bgrts", qg, k_read)
+    s = s / math.sqrt(D)
+    sidx = torch.arange(Smax, device=x.device)
+    valid = sidx[None, None, :] <= positions.to(torch.int64)[:, :, None]  # [B,T,S]
+    s = torch.where(valid[:, None, None], s, -1e30)
+    p_att = torch.softmax(s, dim=-1)
+    with full_fp32():
+        o = torch.einsum("bgrts,bgsd->bgrtd", p_att, v_read).reshape(B, H, T, D)
     return [_out_project(o, wo, x), ck, cv]

@@ -136,12 +136,15 @@ def _im2col(x, kh, kw, strides, dilation, pads):
     return (cols[0] if len(cols) == 1 else torch.cat(cols, dim=-1)).contiguous()
 
 
-def prepare_int8_weights(nodes, params: Dict[str, torch.Tensor]
+def prepare_int8_weights(nodes, params: Dict[str, torch.Tensor],
+                         by_edge: Optional[Dict[str, PreparedB]] = None
                          ) -> Dict[str, PreparedB]:
     """{node name: prepared weight} for every int8 conv and dense of
     `nodes` that runs on `matmul_int8` or `conv3x3_int8` (every one but the
-    grouped convs), each weight prepared once however many nodes share it."""
-    by_edge: Dict[str, PreparedB] = {}
+    grouped convs), each weight prepared once however many nodes share it.
+    `by_edge` ({weight edge: prepared weight}) holds weights prepared
+    before, which are reused, and takes the ones prepared now."""
+    by_edge = {} if by_edge is None else by_edge
     out = {}
     for node in nodes:
         if node.op not in ("conv2d_int8", "dense_int8") or (

@@ -219,7 +219,8 @@ def _w4_group_quantize(w: np.ndarray, group: int):
 
 
 def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
-                         bits: int = 8, group: int = 128) -> Graph:
+                         bits: int = 8, group: int = 128,
+                         packed: Optional[Dict] = None) -> Graph:
     """Calibration-free weight-only quantization for decode graphs, whose
     steps are bound by weight bytes; activations stay float.
 
@@ -234,9 +235,24 @@ def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
     pinned to "fp32" in `graph.precisions` stay float.  Use it instead of
     `quantize_graph`, not with it.  (The port runs `dense_w8` and
     `dense_w4`; `conv2d_w8` waits for a conv slice.)
+
+    `packed`, a dict the caller keeps across calls, carries the quantized
+    weights from one call to the next: a graph that holds the very same
+    weight array under the same edge gets the arrays of the earlier call
+    instead of quantizing it again (the graphs of one model share their
+    weights, and a 1B-class model takes seconds to quantize on the host).
     """
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
+
+    def quantized(w_edge, w, kind, fn):
+        if packed is None:
+            return fn()
+        hit = packed.get((w_edge, kind))
+        if hit is None or hit[0] is not w:
+            hit = packed[(w_edge, kind)] = (w, fn())
+        return hit[1]
+
     g = graph.clone()
     for node in g.nodes.values():
         if node.op not in ("dense", "conv2d"):
@@ -257,7 +273,9 @@ def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
                     "group=%d — falling back to w8 for this layer",
                     node.name, K, group)
             else:
-                q, scale, G = _w4_group_quantize(np.asarray(w), eff_group)
+                q, scale, G = quantized(
+                    w_edge, w, ("w4", eff_group),
+                    lambda: _w4_group_quantize(np.asarray(w), eff_group))
                 g.params[w_edge + "__w4"] = q
                 g.params[w_edge + "__w4scale"] = scale
                 node.inputs = [node.inputs[0], w_edge + "__w4",
@@ -266,8 +284,11 @@ def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
                 node.op = "dense_w4"
                 continue
         axis = 3 if node.op == "conv2d" else 1
-        w_scale = per_channel_weight_scale(w, axis)
-        g.params[w_edge + "__w8"] = _quantize_weight(w, w_scale, axis)
+        def w8():
+            w_scale = per_channel_weight_scale(w, axis)
+            return _quantize_weight(w, w_scale, axis), w_scale
+        q8, w_scale = quantized(w_edge, w, ("w8", axis), w8)
+        g.params[w_edge + "__w8"] = q8
         g.params[w_edge + "__w8scale"] = w_scale
         node.inputs = [node.inputs[0], w_edge + "__w8",
                        w_edge + "__w8scale"] + rest

@@ -1,1 +1,3 @@
+from .decode_scheduler import DecodeScheduler  # noqa: F401
+from .generate import GenerationSession  # noqa: F401
 from .net import Net, build_forward  # noqa: F401

@@ -25,7 +25,34 @@ from ..models.transformer import (
 )
 from .net import Net, _resolve_device
 
-__all__ = ["GenerationSession"]
+__all__ = ["GenerationSession", "prefill_bucket", "prefill_attention_impl"]
+
+# Prompt-length buckets: one prefill graph per bucket, not per length.  Small
+# buckets stay tight; beyond them multiples of 128.  Padding is exact for
+# causal attention: position P-1 never attends rows >= P, and cache rows >= P
+# are overwritten by the decode step that reaches them before any step reads
+# them.
+_BUCKETS_SMALL = (32, 64)
+# flash from this bucket on (the JAX package's measured crossover, S >= 512)
+_FLASH_FROM = 512
+
+
+def prefill_bucket(P: int, max_seq: int) -> int:
+    """The bucket length a P-token prompt is padded to."""
+    for b in _BUCKETS_SMALL:
+        if P <= b:
+            return min(b, max_seq)
+    return min(-(-P // 128) * 128, max_seq)
+
+
+def prefill_attention_impl(device: torch.device, bucket: int, head_dim: int,
+                           precision: str) -> Optional[str]:
+    """The "auto" prefill attention: flash on CUDA from bucket 512 on, where
+    the kernel takes the head dim for the net's dtype; else None (the dense
+    path).  The JAX gate is its TPU backend."""
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    return ("flash" if device.type == "cuda" and bucket >= _FLASH_FROM
+            and takes_head_dim(head_dim, dtype) else None)
 
 
 class GenerationSession:
@@ -43,22 +70,17 @@ class GenerationSession:
     ("flash" forces the kernel, which raises `ValueError` on a head dim it
     does not take).  Every row decodes at the
     same position, so the decode graph takes the aligned single-row cache
-    write.
+    write.  `prefill_buckets=False` builds one prefill graph per exact
+    prompt length instead of one per bucket (the JAX package's speculative
+    session takes it: a bucket's padding moves the prefill's float sums).
     """
-
-    # Prompt-length buckets: one prefill graph per bucket, not per length.
-    # Small buckets stay tight; beyond them multiples of 128.  Padding is
-    # exact for causal attention: position P-1 never attends rows >= P, and
-    # cache rows >= P are overwritten by the decode step that reaches them
-    # before any step reads them.
-    _BUCKETS_SMALL = (32, 64)
-    _FLASH_FROM = 512
 
     def __init__(self, cfg: TransformerConfig, batch: int = 1,
                  params: Optional[Dict[str, np.ndarray]] = None,
                  precision: str = "fp32", seed: int = 0,
                  kv_cache_dtype: str = "float32", kv_scale: float = 0.05,
-                 prefill_attention: str = "auto", device=None):
+                 prefill_attention: str = "auto", device=None,
+                 prefill_buckets: bool = True):
         self.cfg = cfg
         self.batch = batch
         self.device = _resolve_device(device)
@@ -68,6 +90,7 @@ class GenerationSession:
         self.kv_cache_dtype = kv_cache_dtype
         self.kv_scale = kv_scale
         self.prefill_attention = prefill_attention
+        self.prefill_buckets = prefill_buckets
         self.decode_graph = build_transformer_decode_step(
             cfg, batch, self.params, kv_cache_dtype=kv_cache_dtype,
             kv_scale=kv_scale, aligned_pos=True)
@@ -81,20 +104,14 @@ class GenerationSession:
             for j, kv in enumerate("kv")]
 
     def _bucket(self, P: int) -> int:
-        for b in self._BUCKETS_SMALL:
-            if P <= b:
-                return min(b, self.cfg.max_seq)
-        return min(-(-P // 128) * 128, self.cfg.max_seq)
+        return prefill_bucket(P, self.cfg.max_seq) if self.prefill_buckets \
+            else P
 
     def _attention_impl(self, bucket: int) -> Optional[str]:
-        """"auto": flash for a CUDA session from bucket `_FLASH_FROM` on,
-        where the kernel takes the head dim; else the dense path."""
         if self.prefill_attention != "auto":
             return self.prefill_attention
-        dtype = torch.bfloat16 if self.precision == "bf16" else torch.float32
-        return ("flash" if self.device.type == "cuda"
-                and bucket >= self._FLASH_FROM
-                and takes_head_dim(self.cfg.head_dim, dtype) else None)
+        return prefill_attention_impl(self.device, bucket, self.cfg.head_dim,
+                                      self.precision)
 
     def _prefill_net(self, bucket: int):
         if bucket not in self._prefill_nets:
@@ -133,8 +150,11 @@ class GenerationSession:
         out = self.decode_net.prediction(feed)
         return out[self._logits_edge], {k: out[e] for k, e in self._cache_edges}
 
-    def generate(self, prompt, max_new_tokens: int = 16) -> np.ndarray:
-        """prompt: [B, P] int -> [B, P + max_new_tokens] int32 (numpy)."""
+    def generate(self, prompt, max_new_tokens: int = 16,
+                 greedy: bool = True) -> np.ndarray:
+        """prompt: [B, P] int -> [B, P + max_new_tokens] int32 (numpy).
+        Every token is the argmax, whatever `greedy` says, as in the JAX
+        package, which takes the argument and always takes the argmax."""
         prompt = torch.as_tensor(prompt).to(self.device, torch.int32)
         B, P = prompt.shape
         if B != self.batch:

@@ -13,9 +13,10 @@ package's suite configuration: random weights from seed 0, scales from
 `calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
 net); then, on the same LLM weights and ResNet net, the distinct-position
 w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
-through the fused bottleneck_int8.  About 3 minutes as a command on an
-H100, of which about 35 s are nvcc (the int8 core's sources are the
-slowest; all sources build at once).
+through the fused bottleneck_int8, and the decode scheduler serving
+requests on the LLM weights through CUDA graphs.  4-5 minutes as a
+command on an H100, of which 35-50 s are nvcc (the int8 core's sources
+are the slowest; all sources build at once).
 Phases:
 
   1. build    compile every kernel from `anakin_tpu_torch/csrc` (one nvcc
@@ -69,7 +70,11 @@ Phases:
               M <= 16 route) and 4096, N = 1003 (the byte-by-byte path), K
               = G = 128 (one group, one split), float32 x, and the groups
               the quantizer writes beside 128 (32, and 96 over K = 96 and
-              1920, each timed beside the G = 128 case); tolerances as
+              1920, each timed beside the G = 128 case); the shapes of
+              phase 15's bucket admissions: flash at S = 768, 1024 and 1536,
+              matmul_w4 at M = 8 L for buckets 64 (whose 8192 -> 2048
+              product splits K through the workspace and `sum_splits`) and
+              1536, each row printing its split count; tolerances as
               each kernel's source states them; each timed beside its plain
               version, its bound and a library call
               (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`);
@@ -139,7 +144,32 @@ Phases:
               printed and in the JSON), its plain version and the unfused
               chain matmul_int8 -> conv3x3_int8 -> matmul_int8 on the same
               block (PyTorch has no int8 convolution on CUDA: no library
-              call).
+              call);
+ 15. scheduler the port's `DecodeScheduler` on the LLM weights: b8, bf16,
+              int8 KV cache, `weight_only="w4"`, bucket admission, cache
+              views off, one scheduler; 12 greedy requests (prompts of 40,
+              200, 512, 700, 1000 and 1500 tokens, buckets 64 to 1536, so
+              flash from 512) of 64 new tokens, first through the per-step
+              path (`fuse_window` 0: one captured step replayed a token),
+              then with `fuse_window` 16 (read at every step) and the
+              counts set to 0 just before and read just after: one request
+              whose first window captures the window graph, then the 12
+              requests through fused windows (one graph replay a window),
+              three of them carrying a stop token their output reaches:
+              flash_attention and matmul_w4 launch (at warm-up and capture
+              and in the eager bucket prefills; a replay counts nothing)
+              and nothing else; every request's tokens equal the per-step
+              path's, the stopped ones up to and ending on their stop
+              token; the host seconds of each graph's weight-only rewrite,
+              tokens/s, ms a window step; one captured decode step
+              bit-equal to the eager step in logits and caches; the
+              admission ms of each bucket; one window replayed, profiled
+              (host launch calls, device busy) and timed beside the same
+              window run eagerly, the two giving equal tokens; then, at 2
+              of the 16 layers, chunked admission with cache views on and
+              device sampling in the windows (three requests: top_k 1 must
+              give the greedy tokens, every token in range, the chunk step
+              and the windows captured graphs).
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  `--kernels-only` runs phases
@@ -152,6 +182,7 @@ the script exits non-zero; so does a machine without a GPU.  Details go to
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -555,10 +586,12 @@ def profile_step(fn, step_ms, tag):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, host_launches = {}, {}
     for ev in prof.key_averages():  # kernels only: host ops are not device time
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             by_name[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
+        elif "LaunchKernel" in ev.key or "GraphLaunch" in ev.key:
+            host_launches[ev.key] = ev.count  # the host's launch calls
     busy_ms = sum(t for t, _ in by_name.values())
     launches = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -566,13 +599,14 @@ def profile_step(fn, step_ms, tag):
         log(f"[{tag}] profiled step: wall {wall_ms:.2f} ms under the profiler, "
             f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
             f"it, {100 * busy_ms / step_ms:.1f}% of the unprofiled step) in "
-            f"{launches} kernel launches")
+            f"{launches} kernel launches; host launch calls {host_launches}")
         for k, (t, c) in top:
             log(f"[{tag}]   {t:9.3f} ms  x{c:<4d} {k[:90]}")
     else:
         log(f"[{tag}] the profiler recorded no device time: not measured")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share_of_step=busy_ms / step_ms, kernel_launches=launches,
+                host_launch_calls=host_launches,
                 top=[(k, t, c) for k, (t, c) in top])
 
 
@@ -826,6 +860,11 @@ def llm_path_a(report, cfg, params, card):
     return counts
 
 
+# the w4 weights of the LLM, quantized once for phases 6 and 12
+# (`weight_only_quantize`'s `packed`)
+W4_PACKED = {}
+
+
 def w4_ladder(cfg, params, distinct=False, variant=None):
     """The w4 decode ladder: `weight_only_quantize(bits=4)` of the int8-KV
     decode step, aligned positions with blend writes (path B) or distinct
@@ -840,7 +879,8 @@ def w4_ladder(cfg, params, distinct=False, variant=None):
 
     g = weight_only_quantize(build_transformer_decode_step(
         cfg, LLM_BATCH, params, kv_cache_dtype="int8", aligned_pos=not distinct,
-        cache_update="rows" if distinct else "blend"), bits=4)
+        cache_update="rows" if distinct else "blend"), bits=4,
+        packed=W4_PACKED)
     if variant is not None:
         for n in g.nodes.values():
             if n.op == "dense_w4":
@@ -1052,8 +1092,9 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     and any order is within K * 2^-24 * (|x| @ |W|) of the exact sum, so
     |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
     same inputs and counts the dequantized weights where the two differ."""
-    from anakin_tpu_torch.kernels.matmul_w4 import (matmul_w4, matmul_w4_plain,
-                                                    unpack_w4, unpack_w4_v2)
+    from anakin_tpu_torch.kernels.matmul_w4 import (_lib, matmul_w4,
+                                                    matmul_w4_plain, unpack_w4,
+                                                    unpack_w4_v2)
     from anakin_tpu_torch.quant.quantize import _w4_group_quantize
 
     rng = np.random.default_rng(M * 7 + K + N)
@@ -1070,6 +1111,10 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     mag = x.float().abs() @ w.float().abs()
     d = (got - want).abs()
     ok = bool((d <= 2 * K * 2.0 ** -24 * mag).all())
+    # the splits of K the launch took (> 1: through the workspace and
+    # sum_splits, except bf16 x at M <= 16, which sums in a cluster)
+    splits = _lib().ak_matmul_w4_splits(
+        M, N, K, g, int(dtype == torch.bfloat16) | 2 * int(bf16_scales))
     # enough copies of the weights that every call reads them from HBM
     n_copies = max(1, -(-100 * 2 ** 20 // (packed.numel() + 4 * scales.numel())))
     copies = [(x, packed.clone(), scales.clone()) for _ in range(n_copies)]
@@ -1098,6 +1143,12 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     dequant_mm_ms = graph_ms(rotating(torch.matmul, [(x, w.clone())
                                                      for _ in range(n_copies)]),
                              iters=2 * n_copies)
+    # at prefill shapes, the dequant done each call beside the product: the
+    # yardstick of the M > 16 route
+    unpack = unpack_w4_v2 if variant == "v2" else unpack_w4
+    dequant_then_mm_ms = None if M <= 16 else graph_ms(rotating(
+        lambda x_, p_, s_: torch.matmul(x_, unpack(p_, s_, g, dtype)), copies),
+        iters=n_copies)
     xb = x.element_size()
     nbytes = (K // 2 * N + (K // g) * N * scales.element_size() + M * K * xb
               + M * N * 4)
@@ -1107,12 +1158,13 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     bms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
     return dict(kernel="matmul_w4_v2" if variant == "v2" else "matmul_w4",
                 shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
-                bf16_scales=bf16_scales, ok=ok,
+                bf16_scales=bf16_scales, splits=splits, ok=ok,
                 max_abs_err=float(d.max()), max_rel_to_mag=float((d / mag).max()),
                 ms=ms, plain_ms=plain_ms, v1_ms=v1_ms,
                 weights_differ_from_v1=weights_differ,
                 library_ms=library_ms, library_rel_err=lib_err, library_none_reason=why,
-                dequant_bf16_matmul_ms=dequant_mm_ms, bound_ms=bms, bound_by=by,
+                dequant_bf16_matmul_ms=dequant_mm_ms,
+                dequant_then_matmul_ms=dequant_then_mm_ms, bound_ms=bms, bound_by=by,
                 calls_per_run=calls)
 
 
@@ -1163,6 +1215,9 @@ def llm_kernels(report, cfg):
         (2, H, Hkv, 300, 80, torch.bfloat16, True, [300, 173], 0),
         (2, H, Hkv, 300, 256, torch.bfloat16, False, [300, 173], 0),
         (2, H, Hkv, 300, 96, torch.float32, True, [300, 173], 0),
+        # phase 15's bucket admissions from 512 on (512 is the path's row)
+        *[(B, H, Hkv, L, D, torch.bfloat16, True, None, 0)
+          for L in (768, 1024, 1536)],
     ]
     bf16, f32 = torch.bfloat16, torch.float32
     w4_cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
@@ -1183,33 +1238,53 @@ def llm_kernels(report, cfg):
         (B, E, 1003, 128, bf16, False, 0),
         (B, 128, F_, 128, bf16, True, 0),
         (4096, E, F_, 128, bf16, False, 0),
+        # the M > 16 route at the prefill shapes of an 8 x 512 bucket, with
+        # the scales in bf16 as the scheduler's prefill hands them over
+        (4096, E, F_, 128, bf16, True, 0),
+        (4096, F_, E, 128, bf16, True, 0),
         (B, F_, E, 128, f32, False, 0),
         (5, E, F_, 128, f32, True, 0),
         (4096, E, F_, 128, f32, False, 0),
+        # the M > 16 route at phase 15's bucket admissions, M = 8 L, scales
+        # in bf16: bucket 64 (8192 -> 2048 splits K through the workspace)
+        # and the largest, 1536
+        *[(LLM_BATCH * L, k, n, 128, bf16, True, 0)
+          for L in (64, 1536) for k, n in ((E, F_), (F_, E))],
     ] + W4_GROUP_CASES
     results = []
     for b, h, hkv, s, d, dt, causal, lens, calls in flash_cases:
+        t0 = time.perf_counter()
         r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls)
         results.append(r)
         log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
             f" lengths={lens} x{calls} err={r['max_abs_err']:.3g} ok={r['ok']} "
             f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
-            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})")
+            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})"
+            f" ({time.perf_counter() - t0:.1f} s)")
     for m, k, n, grp, dt, bs, calls in w4_cases:
+        t0 = time.perf_counter()
         r = check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs)
         results.append(r)
         lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         log(f"[kernel] matmul_w4 {m}x{k}->{n} {r['dtype']} scales "
-            f"{'bf16' if bs else 'float32'} x{calls} "
+            f"{'bf16' if bs else 'float32'} x{calls} splits={r['splits']} "
             f"err={r['max_abs_err']:.3g} ({r['max_rel_to_mag']:.2g} of |x|@|W|) "
             f"ok={r['ok']} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"int4pack_mm={lib} dequantized-bf16-matmul="
-            f"{r['dequant_bf16_matmul_ms']:.4f} bound={r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+            f"{r['dequant_bf16_matmul_ms']:.4f}"
+            + ("" if r["dequant_then_matmul_ms"] is None else
+               f" dequant+matmul={r['dequant_then_matmul_ms']:.4f}")
+            + f" bound={r['bound_ms']:.4f} ({r['bound_by']})"
+            f" ({time.perf_counter() - t0:.1f} s)")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
+    split = [r for r in results if r["kernel"] == "matmul_w4"
+             and r["shape"][:3] == [LLM_BATCH * 64, F_, E] and r["dtype"] == "bfloat16"]
+    if not split or split[0]["splits"] < 2:
+        raise AssertionError(f"bucket 64's 8192 -> 2048 product did not take "
+                             f"the split route: {split}")
     report["llm_kernel_configs"] = results
     return results
 
@@ -1914,6 +1989,304 @@ def bottleneck_phase(report, card, resnet):
     return results, counts["bottleneck_int8"]
 
 
+# ------------------------------------------------------------- scheduler
+
+# prompt lengths cycle through buckets 64, 256, 512, 768, 1024 and 1536, so
+# the bucket admissions from 512 on take the flash kernel
+SCHED_LENGTHS = (40, 200, 512, 700, 1000, 1500)
+SCHED_REQUESTS, SCHED_NEW, SCHED_WINDOW = 12, 64, 16
+SCHED_STOPPED = 3  # requests given a stop token their output reaches
+SCHED_SMALL_LAYERS = 2  # depth of the chunked, sampled check
+
+
+def _serve(sched, prompts, stops):
+    """Submit every request at once; (results, wall seconds)."""
+    t0 = time.perf_counter()
+    futs = [sched.submit(p, max_new_tokens=SCHED_NEW,
+                         stop_tokens=stops.get(i, ()))
+            for i, p in enumerate(prompts)]
+    out = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _window_feed(cfg, K):
+    """A greedy window's inputs: every slot decodes K steps from its own
+    position (up to max_seq - K - 1)."""
+    B = LLM_BATCH
+    pos = np.minimum(np.arange(B) * 287 + 40, cfg.max_seq - K - 1)
+    return dict(tok=np.arange(1, B + 1, dtype=np.int32)[:, None],
+                pos=pos.astype(np.int32), rem=np.full((B,), K, np.int32),
+                rid=np.arange(B, dtype=np.int32), gen0=np.zeros((B,), np.int32),
+                temp=np.zeros((B,), np.float32), topk=np.zeros((B,), np.int32),
+                topp=np.zeros((B,), np.float32),
+                stop_ids=np.full((B, 8), -1, np.int32))
+
+
+def _replay_equals_eager(sched, cfg):
+    """One captured decode step (`Net.compile`, the caches bound as static
+    inputs) against the eager step (`Net.prediction`) on the same inputs,
+    each on its own copy of random int8 caches: logits and every cache
+    equal, bit for bit."""
+    B = LLM_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    shape = (B, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    base = {k: torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8) for k in sched._caches}
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos = torch.tensor(np.minimum(np.arange(B) * 287 + 3, cfg.max_seq - 1),
+                       dtype=torch.int32, device="cuda")
+    eager_c = {k: v.clone() for k, v in base.items()}
+    graph_c = {k: v.clone() for k, v in base.items()}
+    net, logits_e = sched.net, sched._logits_edge
+    want = net.prediction(dict(eager_c, input=tok, pos=pos))
+    step = net.compile(dict(graph_c, input=tok, pos=pos), static=graph_c)
+    got = step({"input": tok, "pos": pos})
+    torch.cuda.synchronize()
+    same_logits = torch.equal(got[logits_e], want[logits_e])
+    same_caches = all(torch.equal(graph_c[k], eager_c[k]) for k in base)
+    log(f"[sched] one captured decode step replayed vs the eager step: "
+        f"logits equal {same_logits}, {len(base)} caches equal {same_caches}")
+    if not (same_logits and same_caches):
+        raise AssertionError("the replayed decode step differs from the eager "
+                             "step")
+    return dict(logits_equal=same_logits, caches_equal=same_caches)
+
+
+def _chunked_sampled(params, card):
+    """Chunked admission (the chunk step a captured graph), cache views on
+    and device sampling in the windows, at full width and 2 of the 16
+    layers: a greedy request, the same request at temperature 0.9 with
+    top_k 1 (which must give the greedy tokens) and a nucleus-sampled one;
+    every token in range."""
+    from anakin_tpu_torch.models import TransformerConfig
+    from anakin_tpu_torch.runtime import DecodeScheduler
+    from anakin_tpu_torch.runtime.graphs import CapturedStep
+
+    cfg = TransformerConfig(**dict(LLM_CFG, layers=SCHED_SMALL_LAYERS))
+    small = {k: v for k, v in params.items()
+             if not re.match(r"l(\d+)\.", k)
+             or int(k[1:].split(".")[0]) < SCHED_SMALL_LAYERS}
+    rng = np.random.default_rng(6)
+    p40, p200 = (rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+                 for n in (40, 200))
+    t0 = time.perf_counter()
+    sched = DecodeScheduler(cfg, batch=LLM_BATCH, params=small,
+                            precision="bf16", kv_cache_dtype="int8",
+                            weight_only="w4", fuse_window=SCHED_WINDOW,
+                            prefill_mode="chunked", device="cuda")
+    try:
+        futs = [sched.submit(p40, max_new_tokens=16),
+                sched.submit(p40, max_new_tokens=16, temperature=0.9, top_k=1),
+                sched.submit(p200, max_new_tokens=16, temperature=1.0,
+                             top_k=40, top_p=0.9)]
+        greedy, top1, sampled = (f.result(timeout=600) for f in futs)
+        wall_s = time.perf_counter() - t0
+        runs = [sched._vrun, *sched._fused_runs.values()]
+        keys = sorted(sched._fused_runs)
+    finally:
+        sched.close()
+    new = np.concatenate([t[-16:] for t in (greedy, top1, sampled)])
+    log(f"[sched] chunked admission, views on, device sampling, "
+        f"{SCHED_SMALL_LAYERS} layers: 3 requests in {wall_s:.2f} s with the "
+        f"scheduler's build, windows {keys} (sampling, view), top_k 1 equals "
+        f"greedy: {np.array_equal(greedy, top1)} | {card}")
+    if not all(isinstance(r, CapturedStep) for r in runs) or not keys:
+        raise AssertionError("the chunk step and the windows were not "
+                             "captured graphs")
+    if not np.array_equal(greedy, top1):
+        raise AssertionError("top_k 1 sampling differs from greedy")
+    if new.min() < 0 or new.max() >= cfg.vocab:
+        raise AssertionError("sampled token out of range")
+    return dict(wall_s=wall_s, layers=SCHED_SMALL_LAYERS,
+                windows=[list(k) for k in keys], top_k1_equals_greedy=True)
+
+
+def scheduler_phase(report, cfg, params, card):
+    """Phase 15: the port's DecodeScheduler at full width (b8, bf16, int8
+    KV cache, w4, bucket admission, cache views off), one scheduler: 12
+    greedy requests of 64 new tokens through the per-step path
+    (`fuse_window` 0: one captured step replayed a token), then, with
+    `fuse_window` 16 (read at every step) and the counts set to 0 just
+    before and read just after, one request that captures the window graph
+    and the 12 requests again through fused windows (CUDA graphs), against
+    the per-step path's tokens; then one captured step against the eager
+    step, the admission time of each bucket, one window replayed, profiled
+    and timed beside the same window run eagerly, and the chunked, sampled
+    check."""
+    import anakin_tpu_torch.runtime.decode_scheduler as ds
+    from anakin_tpu_torch.runtime import DecodeScheduler
+    from anakin_tpu_torch.runtime.graphs import CapturedStep
+
+    # the host seconds of each graph's weight-only rewrite: the first
+    # quantizes the weights, the later ones take its arrays (`packed`)
+    quantize, rewrite_s = ds.weight_only_quantize, []
+
+    def timed_quantize(*a, **kw):
+        t = time.perf_counter()
+        g = quantize(*a, **kw)
+        rewrite_s.append(time.perf_counter() - t)
+        return g
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, (SCHED_LENGTHS[i % 6],)).astype(
+        np.int32) for i in range(SCHED_REQUESTS)]
+    # views off: a view changes the attention's reduction length, and so
+    # the order of its float sums, with the batch's positions; the two runs
+    # below batch their requests differently
+    t0 = time.perf_counter()
+    ds.weight_only_quantize = timed_quantize
+    try:
+        sched = DecodeScheduler(cfg, batch=LLM_BATCH, params=params,
+                                precision="bf16", kv_cache_dtype="int8",
+                                weight_only="w4", cache_view="off",
+                                fuse_window=0, device="cuda")
+        build_s = time.perf_counter() - t0
+        ref, ref_s = _serve(sched, prompts, {})
+    finally:
+        ds.weight_only_quantize = quantize
+    try:
+        ref_steps = sched.steps_run
+        ref_tok = sum(len(r) - len(p) for r, p in zip(ref, prompts))
+        log(f"[sched] per-step path: {SCHED_REQUESTS} requests x {SCHED_NEW} "
+            f"tokens in {ref_s:.2f} s, {ref_tok / ref_s:.1f} tokens/s "
+            f"({ref_steps} steps; scheduler built in {build_s:.1f} s); "
+            f"weight-only rewrite of each graph: "
+            + ", ".join(f"{t:.3f}" for t in rewrite_s) + " s (the first "
+            f"quantizes, the later ones reuse its arrays)")
+        # stop tokens for three requests: a token their greedy output
+        # reaches first at index 8 or later
+        stops = {}
+        for i, (r, p) in enumerate(zip(ref, prompts)):
+            gen_i = [int(t) for t in r[len(p):]]
+            j = next((j for j in range(8, SCHED_NEW)
+                      if gen_i[j] not in gen_i[:j]), None)
+            if j is not None and len(stops) < SCHED_STOPPED:
+                stops[i] = (gen_i[j],)
+        if len(stops) < SCHED_STOPPED:
+            raise AssertionError("fewer than three requests reach a new token "
+                                 "after their eighth")
+
+        sched.fuse_window = SCHED_WINDOW
+        reset_counts()
+        # one request of a window's tokens: its first window captures the
+        # graph that every later window replays
+        t0 = time.perf_counter()
+        warm = sched.submit(prompts[0], max_new_tokens=SCHED_WINDOW + 1
+                            ).result(timeout=900)
+        capture_s = time.perf_counter() - t0
+        if not np.array_equal(warm, ref[0][:len(warm)]):
+            raise AssertionError("the capturing request's tokens differ from "
+                                 "the per-step path's")
+        ph0, steps0 = dict(sched.phase_seconds), sched.steps_run
+        windows0, buckets0 = sched.fused_windows_run, sched.bucket_prefills_run
+        got, wall_s = _serve(sched, prompts, stops)
+        counts = read_counts()
+        log(f"[sched] launches while serving (warm-up and capture of the "
+            f"window graph, the eager bucket prefills; a replay counts "
+            f"nothing): {counts}")
+        if counts != dict(no_launches(), flash_attention=counts[
+                "flash_attention"], matmul_w4=counts["matmul_w4"]) \
+                or not counts["flash_attention"] or not counts["matmul_w4"]:
+            raise AssertionError(f"expected flash_attention and matmul_w4 "
+                                 f"launches only, got {counts}")
+        for i, (g, r) in enumerate(zip(got, ref)):
+            want = r
+            if i in stops:
+                n = len(prompts[i]) + [int(t) for t in r[len(prompts[i]):]
+                                       ].index(stops[i][0]) + 1
+                want = r[:n]
+                if int(g[-1]) != stops[i][0]:
+                    raise AssertionError(f"request {i} did not end on its "
+                                         f"stop token")
+            if not np.array_equal(g, want):
+                raise AssertionError(f"request {i}: fused-window tokens differ "
+                                     f"from the per-step path's")
+        win_runs = list(sched._fused_runs.values())
+        if not all(isinstance(r, CapturedStep) for r in win_runs) or \
+                not isinstance(sched._step_run, CapturedStep):
+            raise AssertionError("the windows and the per-step decode were "
+                                 "not captured graphs")
+        windows = sched.fused_windows_run - windows0
+        buckets = sched.bucket_prefills_run - buckets0
+        k_steps = sched.steps_run - steps0 - buckets
+        ph = {k: v - ph0[k] for k, v in sched.phase_seconds.items()}
+        n_tok = sum(len(g) - len(p) for g, p in zip(got, prompts))
+        res = dict(requests=SCHED_REQUESTS, new_tokens=SCHED_NEW,
+                   window=SCHED_WINDOW, batch=LLM_BATCH, launches=counts,
+                   scheduler_build_s=build_s, rewrite_s=rewrite_s,
+                   capture_request_s=capture_s, tokens=n_tok, wall_s=wall_s,
+                   tokens_per_s=n_tok / wall_s, per_step_wall_s=ref_s,
+                   per_step_tokens_per_s=ref_tok / ref_s, windows=windows,
+                   window_steps_with_work=k_steps, bucket_prefills=buckets,
+                   phase_seconds=ph, captured_windows=len(win_runs),
+                   window_ms_per_step_with_work=ph["window"] / k_steps * 1e3,
+                   window_ms_per_step_run=ph["window"] / (
+                       windows * SCHED_WINDOW) * 1e3,
+                   stopped={i: int(s[0]) for i, s in stops.items()})
+        log(f"[sched] fused windows (the graph captured by one request in "
+            f"{capture_s:.2f} s): {n_tok} tokens in {wall_s:.2f} s, "
+            f"{n_tok / wall_s:.1f} tokens/s ({ref_tok / ref_s:.1f} on the "
+            f"per-step path); {windows} windows, {k_steps} steps with work, "
+            f"{res['window_ms_per_step_with_work']:.3f} ms a step with work, "
+            f"{res['window_ms_per_step_run']:.3f} ms a step run; {buckets} "
+            f"bucket prefills; phase seconds {ph}; tokens equal to the "
+            f"per-step path's, {len(stops)} requests ended on their stop "
+            f"tokens | {card}")
+
+        res["replay_vs_eager_step"] = _replay_equals_eager(sched, cfg)
+
+        with torch.inference_mode():
+            admission = {}
+            for L, run in sorted(sched._prefill_runs.items()):
+                ids = np.zeros((LLM_BATCH, L), np.int32)
+                nreal = np.full((LLM_BATCH,), L, np.int32)
+                admission[L] = cuda_ms(lambda: run(ids, nreal, []), iters=1,
+                                       warmup=1, windows=2)
+            log(f"[sched] admission ms per bucket (one dispatch, b{LLM_BATCH}, "
+                f"flash from 512): "
+                + ", ".join(f"{L}: {ms:.1f}" for L, ms in admission.items()))
+            res["admission_ms"] = admission
+
+            K = SCHED_WINDOW
+            run = sched._fused_runs[(False, 0)]
+            feed = _window_feed(cfg, K)
+            fn = sched._window_fn(K, False, 0)
+            x = dict(sched._caches, **{k: torch.as_tensor(v).cuda()
+                                       for k, v in feed.items()})
+            # the same window from the same caches (each step writes its
+            # row before it reads it): the same tokens and k_done
+            eager_packed = fn(x)["packed"]
+            same = torch.equal(run(feed)["packed"], eager_packed)
+            log(f"[sched] the window replayed and run eagerly on the same "
+                f"inputs: packed tokens equal {same}")
+            if not same:
+                raise AssertionError("the replayed window's tokens differ "
+                                     "from the eager window's")
+            replay_ms = cuda_ms(lambda: run(feed), iters=1, warmup=0, windows=3)
+            eager_ms = cuda_ms(lambda: fn(x), iters=1, warmup=0, windows=2)
+            # a window runs its K steps even after every slot froze: the
+            # steps without work in the counted round, at the replay's rate
+            tail = windows * K - k_steps
+            log(f"[sched] one window of {K} steps: replayed {replay_ms:.3f} ms "
+                f"({replay_ms / K:.3f} a step), eager {eager_ms:.3f} ms "
+                f"({eager_ms / K:.3f} a step); the counted round ran {tail} "
+                f"steps without work, {tail * replay_ms / K:.1f} ms of device "
+                f"time | {card}")
+            res.update(window_replay_ms=replay_ms, window_eager_ms=eager_ms,
+                       tail_steps=tail, tail_ms=tail * replay_ms / K)
+            res["profile_window"] = profile_step(lambda: run(feed), replay_ms,
+                                                 "sched window")
+    finally:
+        sched.close()
+    del sched
+    res["chunked_sampled"] = _chunked_sampled(params, card)
+    report["scheduler"] = res
+    return counts
+
+
 def main(argv) -> int:
     import argparse
 
@@ -1989,9 +2362,9 @@ def main(argv) -> int:
     # -------------------------------------------------- 12-13. w4 v2 ladder
     counts["matmul_w4_v2"] = llm_path_b_v2(report, cfg, params, card)[
         "matmul_w4_v2"]
-    del params
     units["matmul_w4_v2"] = f"{NEW} distinct-position w4 decode steps"
     results += w4_v2_kernels(report, cfg)
+    W4_PACKED.clear()
     log(f"[time] w4 v2 phases done at {time.perf_counter() - t_start:.0f} s")
 
     # ------------------------------------------------------ 14. bottleneck
@@ -2001,6 +2374,11 @@ def main(argv) -> int:
     results += bn_results
     units["bottleneck_int8"] = ("the 12 identity blocks of one ResNet-50 b128 "
                                 "forward")
+    log(f"[time] bottleneck phase done at {time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------------------- 15. scheduler
+    report["scheduler_launches"] = scheduler_phase(report, cfg, params, card)
+    del params
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)

@@ -185,3 +185,21 @@ def test_prepare_int8_weights_shares_a_weight_between_nodes(rng):
     prepared = prepare_int8_weights(nodes, {"w": w, "dw": dw})
     assert prepare_b.calls - before == 1 and set(prepared) == {"a", "b"}
     assert prepared["a"] is prepared["b"]
+
+
+def test_net_device_params_shares_the_prepared_weights(rng):
+    """A second ResNet `Net` on `device_params=first.params` neither copies
+    a weight nor prepares one: its params and prepared weights are the
+    first net's objects, and its outputs equal the first net's."""
+    gq = _small_resnet()
+    x = rng.normal(size=(1, 32, 32, 3)).astype(np.float32)
+    a = pt.Net(gq, device="cpu")
+    before = prepare_b.calls
+    b = pt.Net(gq, device="cpu", device_params=a.params)
+    assert prepare_b.calls == before
+    assert all(b.params[k] is a.params[k] for k in a.params)
+    assert b.prepared.keys() == a.prepared.keys() and all(
+        b.prepared[n] is a.prepared[n] for n in a.prepared)
+    out = gq.outputs[0]
+    assert torch.equal(b.prediction({"input": x})[out],
+                       a.prediction({"input": x})[out])

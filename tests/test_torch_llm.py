@@ -734,3 +734,191 @@ def test_kernel_sources_and_launch_counters():
         matmul_w4(torch.zeros((2, 128)), torch.zeros((64, 8), dtype=torch.int8),
                   torch.ones((1, 8)), group=128, variant=variant)
     assert counts() == before
+
+
+# ------------------------------------------------------ mha_verify
+
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("mode", ["rows", "blend"])
+@pytest.mark.parametrize("at_end", [False, True])
+def test_mha_verify_matches_jax(rng, kv, mode, at_end):
+    """A chunk of T = 5 tokens per row against the cache: float32 and int8
+    caches, "rows" and "blend" writes; `at_end` puts one chunk on the
+    cache's last rows and one past it ("rows" moves it back to end on the
+    last row, "blend" drops the rows past it).  Outputs within rtol 1e-4
+    of the largest (float32 sums in another order, then a softmax); float
+    caches within 1e-5; int8 caches equal (the same divide-round-clip of
+    the same rotated k and v)."""
+    B, E, H, Hkv, Smax, T = 3, 128, 4, 2, 24, 5
+    D = E // H
+    shape = (B, Hkv, Smax, D)
+    if kv == "int8":
+        caches = [rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2)]
+    else:
+        caches = [rng.normal(size=shape).astype(np.float32) for _ in range(2)]
+    pos = np.array([Smax - T, Smax - 2, 3] if at_end else [0, 10, 17], np.int32)
+    arrays = ([rng.normal(size=(B, T, E)).astype(np.float32)]
+              + _attn_weights(rng, E, H, Hkv, D) + caches + [pos])
+    attrs = dict(num_heads=H, num_kv_heads=Hkv, rope=True, cache_update=mode)
+    if kv == "int8":
+        attrs.update(kv_cache_dtype="int8", k_scale=0.05, v_scale=0.04)
+    before = [c.copy() for c in caches]  # the port writes into its inputs
+    got, want = _run_both("mha_verify", arrays, [None] * 8, [None] * 8, **attrs)
+    assert tuple(got[0].shape) == (B, T, E)
+    _close_f32(got[0], want[0], rtol=1e-4)
+    for g_c, w_c, c0 in zip(got[1:], want[1:], before):
+        if kv == "int8":
+            np.testing.assert_array_equal(g_c.numpy(), np.asarray(w_c))
+        else:
+            _close_f32(g_c, w_c)
+        assert not np.array_equal(np.asarray(w_c), c0)  # the chunk was written
+
+
+def test_verify_net_matches_jax(rng, params):
+    """The verify graph (`mha_verify` in every layer) through `Net`, int8
+    caches, against the JAX `Net`: logits within rtol 1e-4 of the largest,
+    caches equal."""
+    jc, pc = _cfgs()
+    g = jax_tf.build_transformer_verify_step(jc, 2, 4, params,
+                                             kv_cache_dtype="int8")
+    feed = _feed(rng, g)
+    want = ak.Net(g).prediction({k: v.copy() for k, v in feed.items()})
+    got = pt.Net(graph_from_jax(g), device="cpu").prediction(
+        {k: v.copy() for k, v in feed.items()})
+    _close_f32(got[g.outputs[0]], want[g.outputs[0]], rtol=1e-4)
+    for e in g.outputs[1:]:
+        np.testing.assert_array_equal(got[e].numpy(), np.asarray(want[e]))
+
+
+# ------------------------------------------------------------- Net
+
+def _decode_graph(params, **kw):
+    _, pc = _cfgs()
+    return pt_tf.build_transformer_decode_step(pc, 2, params, **kw)
+
+
+def test_net_device_params_shares_the_weights(params):
+    """A second Net on another graph of the same weights runs on the first
+    one's tensors themselves; an edge the dict lacks raises KeyError."""
+    _, pc = _cfgs()
+    a = pt.Net(_decode_graph(params), device="cpu")
+    v = pt.Net(pt_tf.build_transformer_verify_step(pc, 2, 4, params),
+               device="cpu", device_params=a.params)
+    assert set(v.params) == set(a.params)
+    assert all(v.params[k] is a.params[k] for k in v.params)
+    assert v.params.prepared is a.params.prepared
+    with pytest.raises(KeyError, match="lm_head"):
+        pt.Net(_decode_graph(params), device="cpu", device_params={
+            k: t for k, t in a.params.items() if k != "lm_head"})
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_net_strict_sync_raises_on_a_non_finite_output(precision):
+    """strict_sync: a NaN in a float output raises FloatingPointError (in
+    a bf16 net too); a finite step returns."""
+    b = pt.GraphBuilder("d")
+    w = b.graph.add_param("w", np.ones((4, 3), np.float32))
+    x = b.input((2, 4), name="input")
+    b.output(b.op("dense", [x, w]))
+    g = b.finish()
+    net = pt.Net(g, precision=precision, device="cpu", strict_sync=True)
+    out = net.prediction({"input": np.ones((2, 4), np.float32)})
+    assert torch.isfinite(out[g.outputs[0]].float()).all()
+    bad = np.ones((2, 4), np.float32)
+    bad[1, 2] = np.nan
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        net.prediction({"input": bad})
+    pt.Net(g, precision=precision, device="cpu").prediction({"input": bad})
+
+
+def test_net_op_timer_reports_each_node(rng, params):
+    """enable_op_timer: one line per node, "name(op)" with its mean ms and
+    the step count, the same keys as the JAX Net's report, then the TOTAL
+    line; the summary resets; with the timer off, the JAX Net's report."""
+    jc, _ = _cfgs()
+    jg = jax_tf.build_transformer_decode_step(jc, 2, params)
+    feed = _feed(rng, jg)
+    for e, (shape, dt) in jg.input_specs.items():
+        if dt == "float32":
+            feed[e] = rng.normal(size=shape).astype(np.float32)
+    net = pt.Net(graph_from_jax(jg), device="cpu", enable_op_timer=True)
+    for _ in range(2):
+        net.prediction({k: v.copy() for k, v in feed.items()})
+    report = net.print_and_reset_optime_summary().splitlines()
+    jnet = ak.Net(jg, enable_op_timer=True)
+    jnet.prediction(feed)
+    jreport = jnet.print_and_reset_optime_summary().splitlines()
+    assert len(report) == len(net.order) + 1 == len(jreport)
+    keys = sorted(line.split()[0] for line in report[:-1])
+    assert keys == sorted(line.split()[0] for line in jreport[:-1])
+    assert keys == sorted(f"{n.name}({n.op})" for n in net.order)
+    assert all(line.endswith("ms (n=2)") for line in report[:-1])
+    assert report[-1].startswith("TOTAL (sum of op means)")
+    total = sum(float(line.split()[-3]) for line in report[:-1])
+    assert abs(float(report[-1].split()[-2]) - total) < 1e-3
+    assert net.print_and_reset_optime_summary().splitlines()[0].startswith(
+        "TOTAL")
+    off = pt.Net(graph_from_jax(jg), device="cpu")
+    off.prediction({k: v.copy() for k, v in feed.items()})
+    assert off.print_and_reset_optime_summary() == \
+        ak.Net(jg).print_and_reset_optime_summary()
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("weights", ["float", "w4"])
+def test_net_param_bytes_match_jax(params, precision, weights):
+    """param_bytes: the weights at the net's dtypes, as the JAX Net counts
+    them (float params in the compute dtype, packed int4 as int8)."""
+    jc, _ = _cfgs()
+    g = jax_tf.build_transformer_decode_step(jc, 2, params)
+    if weights == "w4":
+        g = jax_weight_only_quantize(g, bits=4)
+    got = pt.Net(graph_from_jax(g), precision=precision,
+                 device="cpu").param_bytes()
+    assert got == ak.Net(g, precision=precision).param_bytes()
+
+
+def test_net_compile_on_the_cpu_equals_prediction(rng, params):
+    """compile() on the CPU is the eager forward behind the replayable
+    step's interface: the caches are bound as static inputs and written in
+    place; logits and caches equal prediction()'s on copies of the feed."""
+    g = _decode_graph(params, kv_cache_dtype="int8", cache_update="rows")
+    feed = _feed(rng, g)
+    feed["pos"] = np.array([3, 40], np.int32)
+    net = pt.Net(g, device="cpu")
+    want = net.prediction({k: v.copy() for k, v in feed.items()})
+    caches = {k: torch.from_numpy(v.copy()) for k, v in feed.items()
+              if k.startswith("cache_")}
+    step = net.compile(dict(caches, input=feed["input"], pos=feed["pos"]),
+                       static=caches)
+    got = step({"input": feed["input"], "pos": feed["pos"]})
+    for e in g.outputs:
+        assert torch.equal(got[e], want[e]), e
+    assert {id(got[e]) for e in g.outputs[1:]} == {id(t) for t in
+                                                   caches.values()}
+    with pytest.raises(ValueError, match="bound"):
+        step(dict(caches, cache_k_0=caches["cache_k_0"].clone()))
+
+
+@pytest.mark.parametrize("arg", ["mesh", "param_sharding", "input_shardings"])
+def test_net_refuses_sharding(params, arg):
+    with pytest.raises(NotImplementedError, match="module 9"):
+        pt.Net(_decode_graph(params), device="cpu", **{arg: {}})
+
+
+# ---------------------------------------------------------- session
+
+@pytest.mark.parametrize("greedy", [True, False])
+def test_session_exact_length_prefill_matches_jax(rng, params, greedy):
+    """prefill_buckets=False builds the prefill for the prompt's own
+    length; generate(greedy=...) takes the argmax either way, as the JAX
+    session does: the same tokens."""
+    jc, pc = _cfgs()
+    prompt = rng.integers(0, CFG["vocab"], (2, 20)).astype(np.int32)
+    js = JaxSession(jc, batch=2, params=params, prefill_buckets=False)
+    ps = GenerationSession(pc, batch=2, params=params, prefill_buckets=False,
+                           device="cpu")
+    assert ps._bucket(20) == js._bucket(20) == 20
+    np.testing.assert_array_equal(ps.generate(prompt, 5, greedy=greedy),
+                                  js.generate(prompt, 5, greedy=greedy))
+    assert list(ps._prefill_nets) == [20]

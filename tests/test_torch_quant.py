@@ -243,6 +243,43 @@ def test_infer_shapes_transformer_graphs_match_jax():
         _assert_same_shapes(infer_shapes(g), jax_infer_shapes(jg))
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+def test_weight_only_quantize_reuses_packed_weights(bits):
+    """With a `packed` memo, a second graph over the same weight arrays gets
+    the very arrays of the first call, and a graph equal to the JAX
+    package's rewrite; a weight array that changed is quantized anew."""
+    kw = dict(vocab=64, embed=128, heads=4, kv_heads=2, layers=2, max_seq=32)
+    cfg = port_transformer.TransformerConfig(**kw)
+    jcfg = jax_transformer.TransformerConfig(**kw)
+    params = port_transformer.make_transformer_params(cfg, 0)
+    memo = {}
+    first = weight_only_quantize(port_transformer.build_transformer_decode_step(
+        cfg, 2, params), bits=bits, packed=memo)
+    second = weight_only_quantize(port_transformer.build_transformer_prefill(
+        cfg, 2, 16, params), bits=bits, packed=memo)
+    want = jax_weight_only_quantize(jax_transformer.build_transformer_prefill(
+        jcfg, 2, 16, params), bits=bits)
+    assert {n: (v.op, v.inputs, v.attrs) for n, v in second.nodes.items()} == \
+        {n: (v.op, v.inputs, v.attrs) for n, v in want.nodes.items()}
+    assert second.params.keys() == want.params.keys()
+    quantized = [k for k in want.params if "__w" in k]
+    assert len(quantized) == 2 * 2 * cfg.layers  # the MLPs' (lm_head is small)
+    for k, v in want.params.items():
+        np.testing.assert_array_equal(second.params[k], v)
+        if k in quantized:
+            assert second.params[k] is first.params[k]
+    changed = dict(params, **{"l0.mlp_up": params["l0.mlp_up"] * 2.0})
+    third = weight_only_quantize(port_transformer.build_transformer_decode_step(
+        cfg, 2, changed), bits=bits, packed=memo)
+    fresh = weight_only_quantize(port_transformer.build_transformer_decode_step(
+        cfg, 2, changed), bits=bits)
+    for k, v in fresh.params.items():
+        np.testing.assert_array_equal(third.params[k], v)
+    tag = "__w4" if bits == 4 else "__w8"
+    assert third.params["l0.mlp_up" + tag] is not first.params["l0.mlp_up" + tag]
+    assert third.params["l1.mlp_up" + tag] is first.params["l1.mlp_up" + tag]
+
+
 def test_roofline_report_uses_h100_peaks():
     _, g = _graphs("mobilenet_v1", batch=1)
     flops = sum(v["flops"] for v in flops_estimate(g).values())
