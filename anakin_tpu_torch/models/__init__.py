@@ -1,3 +1,4 @@
+from .googlenet import build_googlenet, build_shufflenet_v1  # noqa: F401
 from .mobilenet import build_mobilenet_v1, build_mobilenet_v2  # noqa: F401
 from .resnet import (build_resnet, build_resnet50,  # noqa: F401
                      build_resnet101, identity_bottlenecks)
@@ -9,3 +10,4 @@ from .transformer import (  # noqa: F401
     build_transformer_verify_step,
     make_transformer_params,
 )
+from .vgg import build_vgg16  # noqa: F401

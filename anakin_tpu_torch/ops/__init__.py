@@ -6,3 +6,4 @@ from . import tensor  # noqa: F401
 from . import quantized  # noqa: F401
 from . import sequence  # noqa: F401
 from . import attention  # noqa: F401
+from . import moe  # noqa: F401

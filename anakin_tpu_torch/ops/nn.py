@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["apply_activation", "conv_pads", "pair"]
+__all__ = ["apply_activation", "conv_f32", "conv_pads", "pair"]
 
 
 def apply_activation(y: torch.Tensor, act: Optional[str],
@@ -125,12 +125,10 @@ def _requant(y: torch.Tensor, qs) -> torch.Tensor:
     return torch.clamp(torch.round(y / float(qs)), -127, 127).to(torch.int8)
 
 
-@register("conv2d", "convolution", "conv_act", "conv_relu", "conv_eltwise",
-          "conv_batchnorm_scale_relu", "conv_fusion", "depwise_sep_convolution")
-def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """2D convolution with fused bias/residual/activation epilogue and the
-    optional `quant_out_scale` requant.  x: NHWC, w: HWIO."""
-    x, w, bias, residual = _split_conv_inputs(node, xs)
+def conv_f32(node, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The node's convolution of NHWC x by HWIO w (strides, dilation,
+    padding and groups as the node says), both widened to float32, with
+    TF32 off: float32 NHWC."""
     (pt, pb), (pl, pr) = conv_pads(node, x.shape[1:3], w.shape[:2])
     xt = F.pad(x.to(torch.float32).permute(0, 3, 1, 2), (pl, pr, pt, pb))
     with full_fp32():
@@ -138,7 +136,16 @@ def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
                      stride=pair(node.attr("strides", (1, 1))),
                      dilation=pair(node.attr("dilation", (1, 1))),
                      groups=int(node.attr("groups", 1)))
-    y = _epilogue(node, y.permute(0, 2, 3, 1), bias, residual)
+    return y.permute(0, 2, 3, 1)
+
+
+@register("conv2d", "convolution", "conv_act", "conv_relu", "conv_eltwise",
+          "conv_batchnorm_scale_relu", "conv_fusion", "depwise_sep_convolution")
+def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """2D convolution with fused bias/residual/activation epilogue and the
+    optional `quant_out_scale` requant.  x: NHWC, w: HWIO."""
+    x, w, bias, residual = _split_conv_inputs(node, xs)
+    y = _epilogue(node, conv_f32(node, x, w), bias, residual)
     qs = node.attr("quant_out_scale")
     if qs is not None:
         return [_requant(y, qs).contiguous()]
@@ -331,3 +338,35 @@ def eltwise(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     else:
         raise ValueError(f"unknown eltwise mode {mode!r}")
     return [apply_activation(y, node.attr("activation"), node.attr("act_alpha", 0.0))]
+
+
+@register("lrn")
+def lrn(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Local response norm across channels, in float32: x / (k + alpha /
+    size * sum of x^2 over a window of `local_size` channels) ** beta, the
+    window zero-padded by size // 2 below and the rest above."""
+    x = xs[0]
+    size = int(node.attr("local_size", 5))
+    alpha = float(node.attr("alpha", 1e-4))
+    beta = float(node.attr("beta", 0.75))
+    k = float(node.attr("k", 1.0))
+    xf = x.to(torch.float32)
+    half = size // 2
+    sq = F.pad(xf * xf, (half, size - 1 - half))
+    c = x.shape[-1]
+    acc = sq[..., 0:c]
+    for i in range(1, size):
+        acc = acc + sq[..., i:i + c]
+    y = xf / torch.pow(k + (alpha / size) * acc, beta)
+    return [y.to(x.dtype)]
+
+
+@register("dropout")
+def dropout(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Inference dropout: the identity, or x * `scale` where a model was
+    trained without inverted dropout (`scale` != 1)."""
+    scale = float(node.attr("scale", 1.0))
+    y = xs[0]
+    if scale != 1.0:
+        y = y * scale
+    return [y]

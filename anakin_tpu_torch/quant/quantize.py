@@ -233,8 +233,7 @@ def weight_only_quantize(graph: Graph, min_elems: int = 1 << 14,
 
     Only weights of at least `min_elems` elements are rewritten, and nodes
     pinned to "fp32" in `graph.precisions` stay float.  Use it instead of
-    `quantize_graph`, not with it.  (The port runs `dense_w8` and
-    `dense_w4`; `conv2d_w8` waits for a conv slice.)
+    `quantize_graph`, not with it.
 
     `packed`, a dict the caller keeps across calls, carries the quantized
     weights from one call to the next: a graph that holds the very same

@@ -145,7 +145,8 @@ def _to_device(v: Any, device: torch.device) -> torch.Tensor:
 class DeviceParams(dict):
     """A `Net`'s weights on its device, {edge: tensor}, with the int8
     weights prepared for the GEMM kernels so far (`prepared`, {edge:
-    PreparedB}), which every `Net` sharing the dict reuses and extends."""
+    PreparedB, or PreparedGroups for a grouped conv}), which every `Net`
+    sharing the dict reuses and extends."""
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  prepared: Optional[Dict[str, Any]] = None):

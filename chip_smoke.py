@@ -13,8 +13,10 @@ package's suite configuration: random weights from seed 0, scales from
 `calibrate(method="max")` over two b1 batches from default_rng(0), a bf16
 net); then, on the same LLM weights and ResNet net, the distinct-position
 w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
-through the fused bottleneck_int8, and the decode scheduler serving
-requests on the LLM weights through CUDA graphs.  4-5 minutes as a
+through the fused bottleneck_int8, the decode scheduler serving requests
+on the LLM weights through CUDA graphs, speculative decoding on the LLM
+weights, the autotuned long-context prefill, and VGG16, GoogLeNet and
+ShuffleNet v1 at 224 px.  4-5 minutes as a
 command on an H100, of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
@@ -171,10 +173,41 @@ Phases:
               give the greedy tokens, every token in range, the chunk step
               and the windows captured graphs).
 
+ 16. speculative `SpeculativeSession` on the LLM weights (bf16, int8 KV cache,
+              k 4, batch 1, a 512-token prompt, 64 new tokens) with a random
+              draft (vocab 32000, E 256, 4 heads, 2 layers): each of its three
+              loops (`generate`, `generate_round_fused`: one captured round a
+              replay, `generate_fused`: a window of 8 rounds a replay) with the
+              counts set to 0 just before and read just after (flash_attention
+              once a layer in each prefill, nothing else); ms per token beside
+              `GenerationSession`'s b1 greedy; rounds, acceptance, the host's
+              graph launches a round; the three loops' tokens equal; the
+              common prefix with greedy and the target's top-2 gap where they
+              part; then draft = target at 2 of the 16 layers in float32:
+              one round (k + 2 tokens) accepts every draft on each loop, and
+              over 64 tokens every loop's tokens equal greedy's;
+ 17. tuned    the long-context prefill of the JAX suite (vocab 8000, E 1024, 8
+              heads, 4 layers, b2, S 2048, a bf16 net): `optimize(autotune=
+              True, tuner_cache=build/...)`, the tuner's choice and both
+              candidates' times; the dense and the tuned net's ms per batch
+              with their flash launches counted; a second `optimize` that
+              reads the cache and times nothing;
+ 18. cnn      `calibrate(method="max")` on the card, then VGG16 int8 b8,
+              GoogLeNet bf16 and int8 b8, ShuffleNet v1 (groups 3) int8 b128
+              at 224 px (bf16 nets), each forward with the counts set to 0
+              just before and read just after (conv3x3_int8 13 / 10,
+              matmul_int8 3 / 47 / 95, depthwise3x3_int8 16), ms/step, img/s
+              and a profiled step; every distinct int8 kernel shape of the
+              three int8 nets against its plain version (untimed: int8 equal,
+              float within rtol 1e-6); card against CPU at b2 and 64 px, node
+              by node; a `conv2d_w8` ResNet-50 card against CPU;
+              `horizontal_combine` on GoogLeNet equal to the uncombined graph;
+              a `moe_ffn` node card against CPU.
+
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  `--kernels-only` runs phases
-1, 7 and 13 alone (no main path, so neither of those lines) and writes
-`build/chip_smoke_kernels.json`.  Any failed check raises and
+1, 7 and 13 and phase 18's kernel checks alone (no main path, so neither of
+those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
 """
@@ -373,7 +406,7 @@ def kernel_calls(graph, shapes):
     """The kernel calls one forward makes: [(kernel, config)], where a
     config holds the GEMM or conv shape and the epilogue, read off the
     graph's int8 nodes and the edge shapes of a run."""
-    from anakin_tpu_torch.ops.quantized import conv_kind
+    from anakin_tpu_torch.ops.quantized import _depthwise_kernel, conv_kind
 
     calls = []
     for node in graph.nodes.values():
@@ -385,7 +418,14 @@ def kernel_calls(graph, shapes):
                    bias=bool(node.attr("has_bias")),
                    residual=bool(node.attr("has_residual")),
                    requant=node.attr("out_scale") is not None)
-        if node.op == "conv2d_int8" and conv_kind(node) == "dw3x3":
+        groups = int(node.attr("groups", 1)) if node.op == "conv2d_int8" else 1
+        if groups > 1 and not _depthwise_kernel(node, w, epi["residual"]):
+            # the grouped route: matmul_int8 once per group
+            og = w.shape[3] // groups
+            calls += [("matmul_int8", dict(
+                M=int(np.prod(out[:-1])), K=int(np.prod(w.shape[:-1])), N=og,
+                **epi))] * groups
+        elif node.op == "conv2d_int8" and groups > 1:
             n, h, w_, c = shapes[node.inputs[0]]
             out_kind = ("int8" if epi["requant"]
                         else node.attr("out_dtype", "float32"))
@@ -423,13 +463,14 @@ def bound(kernel, cfg):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_kernel(kernel, cfg, gen):
+def check_kernel(kernel, cfg, gen, timed=True):
     """Wrapper against plain version on the card, on the weight prepared
     once as a Net prepares it; times of the kernel, of the plain version and
     of the library's product (`torch._int_mm`; for the 3x3, cuDNN's bf16
     conv as a labelled reference: not the same function), each over enough
     copies of its operands (100 MiB or more) that every call reads them from
-    HBM, as a forward does.  Returns a result dict."""
+    HBM, as a forward does.  `timed=False` checks only.  Returns a result
+    dict."""
     import torch.nn.functional as F
     from anakin_tpu_torch.kernels.conv_int8 import (conv3x3_int8,
                                                     conv3x3_int8_plain)
@@ -471,6 +512,11 @@ def check_kernel(kernel, cfg, gen):
         d = (got.float() - want.float()).abs()
         err = float(d.max())
         ok = bool((d <= 1e-6 * want.float().abs()).all())
+    if not timed:
+        fn.launches = launches
+        bms, by = bound(kernel, cfg)
+        return dict(kernel=kernel, **cfg, ok=ok, max_abs_err=err, ms=None,
+                    plain_ms=None, library_ms=None, bound_ms=bms, bound_by=by)
 
     def n_copies(*ts):
         return max(2, -(-100 * 2 ** 20 // sum(t.numel() * t.element_size()
@@ -1182,6 +1228,8 @@ W4_GROUP_CASES = [  # (M, K, N, G, dtype, scales in bf16, calls per run)
 
 def llm_kernels(report, cfg):
     """Phase 7: both LLM kernels against their plain versions."""
+    from anakin_tpu_torch.models import TransformerConfig
+
     E, F_ = cfg.embed, 4 * cfg.embed
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1219,6 +1267,28 @@ def llm_kernels(report, cfg):
         *[(B, H, Hkv, L, D, torch.bfloat16, True, None, 0)
           for L in (768, 1024, 1536)],
     ]
+    # the shapes of phases 16 and 17, which the kernels line does not sum
+    # (its unit is path A's generate): (row, where, launches there)
+    dH = SPEC_DRAFT["heads"]
+    lc = TransformerConfig(**LONGCTX_CFG)
+    elsewhere = [
+        ((1, H, Hkv, PROMPT, D, torch.bfloat16, True, None, 0),
+         "a speculative generate's target prefill", cfg.layers),
+        ((1, dH, SPEC_DRAFT["kv_heads"], PROMPT, SPEC_DRAFT["embed"] // dH,
+          torch.bfloat16, True, None, 0),
+         "a speculative generate's draft prefill", SPEC_DRAFT["layers"]),
+        ((1, H, Hkv, PROMPT, D, torch.float32, True, None, 0),
+         "a draft = target generate's two prefills", 2 * SPEC_SMALL_LAYERS),
+        ((LONGCTX_BATCH, lc.heads, lc.kv_heads, lc.max_seq, lc.head_dim,
+          torch.bfloat16, True, None, 0),
+         "a tuned long-context forward (if the tuner takes flash)", lc.layers),
+        ((LONGCTX_BATCH, lc.heads, lc.kv_heads, lc.max_seq, lc.head_dim,
+          torch.float32, True, None, 0),
+         "the tuner's flash candidate (timed calls)", 0),
+    ]
+    where = {len(flash_cases) + i: (w, n)
+             for i, (_, w, n) in enumerate(elsewhere)}
+    flash_cases += [row for row, _, _ in elsewhere]
     bf16, f32 = torch.bfloat16, torch.float32
     w4_cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
         # the path: the bf16 net hands its scales over in bf16
@@ -1252,12 +1322,16 @@ def llm_kernels(report, cfg):
           for L in (64, 1536) for k, n in ((E, F_), (F_, E))],
     ] + W4_GROUP_CASES
     results = []
-    for b, h, hkv, s, d, dt, causal, lens, calls in flash_cases:
+    for i, (b, h, hkv, s, d, dt, causal, lens, calls) in enumerate(flash_cases):
         t0 = time.perf_counter()
         r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls)
+        if i in where:
+            r["elsewhere"] = dict(zip(("path", "launches"), where[i]))
         results.append(r)
         log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
-            f" lengths={lens} x{calls} err={r['max_abs_err']:.3g} ok={r['ok']} "
+            f" lengths={lens} x{calls}"
+            + (f" (x{where[i][1]} in {where[i][0]})" if i in where else "")
+            + f" err={r['max_abs_err']:.3g} ok={r['ok']} "
             f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})"
             f" ({time.perf_counter() - t0:.1f} s)")
@@ -1484,13 +1558,13 @@ def _dw_bound(cfg):
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
 
 
-def check_dw(cfg, gen, misaligned=False):
+def check_dw(cfg, gen, misaligned=False, timed=True):
     """depthwise3x3_int8 against its plain version on the card: int8
     outputs equal, float outputs within rtol 1e-6.  Times from CUDA-graph
     replay with x rotated through >= 100 MB of copies, beside the bound,
     the plain version and, as context only, cuDNN's bf16 grouped conv on
     the same shapes (not the same function: PyTorch has no int8 depthwise
-    conv on CUDA)."""
+    conv on CUDA).  `timed=False` checks only."""
     import torch.nn.functional as F
     from anakin_tpu_torch.kernels.depthwise_int8 import (
         depthwise3x3_int8, depthwise3x3_int8_plain)
@@ -1526,6 +1600,12 @@ def check_dw(cfg, gen, misaligned=False):
         d = (got.float() - want.float()).abs()
         err = float(d.max())
         ok = bool((d <= 1e-6 * want.float().abs()).all())
+    if not timed:
+        depthwise3x3_int8.launches = launches
+        bms, by = _dw_bound(cfg)
+        return dict(kernel="depthwise3x3_int8", **cfg, misaligned=misaligned,
+                    ok=ok, max_abs_err=err, ms=None, plain_ms=None,
+                    library_ms=None, bound_ms=bms, bound_by=by)
     n_copies = max(2, -(-100 * 2 ** 20 // x.numel()))
     copies = [(place(x),) for _ in range(n_copies)]
     iters = n_copies * -(-20 // n_copies)
@@ -2287,13 +2367,512 @@ def scheduler_phase(report, cfg, params, card):
     return counts
 
 
+# ------------------------------------------------------------ speculative
+
+# the draft of the speculative phase: the 1B-class target's vocabulary and
+# context, E 256, 4 heads, 2 layers (the JAX suite's draft shape,
+# `tools/bench_suite.py:330`)
+SPEC_DRAFT = dict(vocab=32000, embed=256, heads=4, kv_heads=4, layers=2,
+                  max_seq=2048)
+SPEC_K, SPEC_NEW, SPEC_PROFILE_NEW = 4, 64, 16
+SPEC_SMALL_LAYERS = 2  # depth of the exactness check (draft = target)
+SPEC_PATHS = ("generate", "generate_round_fused", "generate_fused")
+
+
+def _first_layers(params, n):
+    """The params of a transformer's first n layers (and the rest of it)."""
+    return {k: v for k, v in params.items()
+            if not re.match(r"l(\d+)\.", k)
+            or int(re.match(r"l(\d+)\.", k).group(1)) < n}
+
+
+def speculative_phase(report, cfg, params, card):
+    """Phase 16: `SpeculativeSession` at the 1B-class target (bf16, int8 KV
+    cache, k 4, batch 1, a 512-token prompt, 64 new tokens) with a random
+    E-256 draft: each of the three loops once to warm up (captures), then
+    timed with the counts set to 0 just before and read just after (flash
+    in each prefill, nothing else: the rounds run no kernel wrapper and a
+    replay counts nothing); tokens equal across the loops; beside
+    `GenerationSession`'s b1 greedy; the host's graph launches a round;
+    then draft = target at 2 of the 16 layers in float32: one round
+    accepts every draft on each loop, and over 64 tokens each loop's tokens
+    equal greedy's (acceptance at least 0.5, the JAX test's bound)."""
+    from anakin_tpu_torch.models import TransformerConfig
+    from anakin_tpu_torch.runtime import GenerationSession, SpeculativeSession
+
+    t0 = time.perf_counter()
+    dcfg = TransformerConfig(**SPEC_DRAFT)
+    spec = SpeculativeSession(cfg, dcfg, params=params, k=SPEC_K,
+                              precision="bf16", kv_cache_dtype="int8")
+    greedy = GenerationSession(cfg, batch=1, params=params, precision="bf16",
+                               kv_cache_dtype="int8",
+                               device=spec.device, prefill_buckets=False)
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, PROMPT)).astype(np.int32)
+    for path in SPEC_PATHS:                        # warm-up and capture
+        getattr(spec, path)(prompt, SPEC_NEW)
+    greedy.generate(prompt, SPEC_NEW)
+    torch.cuda.synchronize()
+    log(f"[spec] sessions, weights, warm-up and capture of the loops: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    res, outs = {}, {}
+    flash_per_prefill = cfg.layers + dcfg.layers
+    for path in SPEC_PATHS + ("greedy",):
+        before = {c: getattr(spec, c) for c in (
+            "rounds", "drafts_accepted", "drafts_proposed", "tokens_committed")}
+        reset_counts()
+        t0 = time.perf_counter()
+        out = (greedy.generate(prompt, SPEC_NEW) if path == "greedy"
+               else getattr(spec, path)(prompt, SPEC_NEW))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = cfg.layers if path == "greedy" else flash_per_prefill
+        if counts != dict(no_launches(), flash_attention=want):
+            raise AssertionError(f"{path}: expected {want} flash_attention "
+                                 f"launches (the prefills), got {counts}")
+        outs[path] = out
+        delta = {c: getattr(spec, c) - v for c, v in before.items()}
+        rate = (delta["drafts_accepted"] / delta["drafts_proposed"]
+                if delta["drafts_proposed"] else 0.0)
+        res[path] = dict(wall_s=wall, ms_per_token=wall / SPEC_NEW * 1e3,
+                         launches=counts, **delta, acceptance_rate=rate)
+        log(f"[spec] {path}: {wall * 1e3:.1f} ms for {SPEC_NEW} tokens, "
+            f"{wall / SPEC_NEW * 1e3:.3f} ms/token (prefill included); "
+            f"rounds {delta['rounds']}, acceptance {rate:.3f}; launches "
+            f"{counts} | {card}")
+    new = outs["generate"][:, PROMPT:]
+    if outs["generate"].shape != (1, PROMPT + SPEC_NEW) or new.min() < 0 \
+            or new.max() >= cfg.vocab:
+        raise AssertionError(f"bad tokens {outs['generate'].shape}")
+    for path in SPEC_PATHS[1:]:
+        if not np.array_equal(outs[path], outs["generate"]):
+            raise AssertionError(f"{path} gives other tokens than generate")
+    # against greedy: the common prefix, and the target's top-2 gap where
+    # the two part (an exact-length prefill of the greedy tokens)
+    g_new = outs["greedy"][0, PROMPT:]
+    diff = np.nonzero(g_new != new[0])[0]
+    common = int(diff[0]) if len(diff) else SPEC_NEW
+    gap = None
+    if len(diff):
+        lg, _ = greedy._prefill(torch.from_numpy(
+            outs["greedy"][:, :PROMPT + common]).cuda())
+        top2 = torch.topk(lg[0, 0].float(), 2).values
+        gap = float(top2[0] - top2[1])
+    res["common_prefix_with_greedy"] = common
+    res["top2_gap_at_first_difference"] = gap
+    log(f"[spec] the three loops give equal tokens; against greedy: common "
+        f"prefix {common} of {SPEC_NEW} tokens"
+        + ("" if gap is None else f", the target's top-2 logit gap where they "
+           f"part {gap:.4g}"))
+    # a profiled generation of each captured loop, SPEC_PROFILE_NEW tokens
+    # (a trace of the 64 holds 220,000 kernels): the device's busy share and
+    # kernels, the host's launch calls (one graph launch a round / a window;
+    # the kernel launches are the two prefills')
+    for path in SPEC_PATHS[1:]:
+        def run(path=path):
+            getattr(spec, path)(prompt, SPEC_PROFILE_NEW)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        r0 = spec.rounds
+        prof = profile_step(run, wall_ms, f"spec {path}")
+        rounds = spec.rounds - r0
+        graphs = sum(v for k, v in prof["host_launch_calls"].items()
+                     if "GraphLaunch" in k)
+        res[path]["profile"] = prof
+        res[path]["graph_launches_per_round"] = graphs / rounds
+        log(f"[spec] {path}: {graphs} graph launches for {rounds} rounds "
+            f"({graphs / rounds:.3f} a round)")
+    del spec, greedy
+    torch.cuda.empty_cache()
+
+    # exactness: draft = target at 2 layers, float32, float KV caches.  One
+    # round (k + 2 tokens: the prefill's, then k drafts and the target's)
+    # must accept every draft on each loop: the draft's decode step and the
+    # target's verify chunk agree.  Over 64 tokens the acceptance is lower,
+    # as the JAX package's own algorithm has it: after a fully accepted
+    # round the draft never saw its last draft token, so its cache lacks
+    # that row (ROADMAP section 3); the tokens stay greedy's.
+    scfg = TransformerConfig(**dict(LLM_CFG, layers=SPEC_SMALL_LAYERS))
+    sparams = _first_layers(params, SPEC_SMALL_LAYERS)
+    same = SpeculativeSession(scfg, scfg, params=sparams, draft_params=sparams,
+                              k=SPEC_K)
+    small = GenerationSession(scfg, batch=1, params=sparams,
+                              prefill_buckets=False, device=same.device)
+    exact = {}
+    for n in (SPEC_K + 2, SPEC_NEW):
+        want = small.generate(prompt, n)
+        for path in SPEC_PATHS:
+            r0, a0, p0 = same.rounds, same.drafts_accepted, same.drafts_proposed
+            out = getattr(same, path)(prompt, n)
+            rate = (same.drafts_accepted - a0) / (same.drafts_proposed - p0)
+            row = exact.setdefault(f"{n}_tokens", {})[path] = dict(
+                tokens_equal_greedy=bool(np.array_equal(out, want)),
+                rounds=same.rounds - r0, acceptance_rate=rate)
+            log(f"[spec] draft = target, {SPEC_SMALL_LAYERS} layers, float32, "
+                f"{n} tokens: {path} tokens equal greedy "
+                f"{row['tokens_equal_greedy']}, rounds {row['rounds']}, "
+                f"acceptance {rate:.4f}")
+            if not row["tokens_equal_greedy"]:
+                raise AssertionError(f"{path}: draft = target differs from "
+                                     f"greedy")
+            if n == SPEC_K + 2 and (row["rounds"], rate) != (1, 1.0):
+                raise AssertionError(f"{path}: draft = target did not accept "
+                                     f"every draft of its one round")
+            if rate < 0.5:  # the JAX package's own bound for draft = target
+                raise AssertionError(f"{path}: draft = target accepted "
+                                     f"{rate:.3f} of its drafts")
+    res["draft_equals_target"] = exact
+    report["speculative"] = res
+
+
+# ------------------------------------------------- tuned long-context prefill
+
+# the JAX suite's `bench_prefill_longctx` (`tools/bench_suite.py:273-306`)
+LONGCTX_CFG = dict(vocab=8000, embed=1024, heads=8, kv_heads=8, layers=4,
+                   max_seq=2048)
+LONGCTX_BATCH = 2
+
+
+def tuned_prefill_phase(report, card):
+    """Phase 17: the long-context prefill (vocab 8000, E 1024, 8 heads, 4
+    layers, b2, S 2048, a bf16 net) dense and tuned on the card, through
+    what `optimize(autotune=True, tuner_cache=build/...)` runs (an
+    `AutoTuner` on that cache and `autotune_graph`, so that its `timings`
+    can be read): the choice per attention node and both candidates' times;
+    a second tuner on the cache times nothing, and `optimize(autotune=True)`
+    on it gives the same choices; each net's ms per batch, the flash
+    launches of a tuned forward."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.kernels.autotune import AutoTuner, autotune_graph
+    from anakin_tpu_torch.models import (TransformerConfig,
+                                         build_transformer_lm,
+                                         make_transformer_params)
+
+    cfg = TransformerConfig(**LONGCTX_CFG)
+    S = cfg.max_seq
+    g = build_transformer_lm(cfg, batch=LONGCTX_BATCH, seq_len=S,
+                             params=make_transformer_params(cfg, 0),
+                             with_lengths=False)
+    cache = os.path.join(ROOT, "build", "autotune_chip_smoke.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    t0 = time.perf_counter()
+    tuner = AutoTuner(cache)
+    tuned = autotune_graph(ak.optimize(g), tuner)
+    tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reread = AutoTuner(cache)
+    again = autotune_graph(ak.optimize(g), reread)
+    again_s = time.perf_counter() - t0
+    if reread.timings:
+        raise AssertionError(f"the second tuning timed again: "
+                             f"{reread.timings}")
+    # the entry point a user calls, on the same cache
+    entry = ak.optimize(g, autotune=True, tuner_cache=cache)
+    attn = [n for n in tuned.nodes.values() if n.op == "multi_head_attention"]
+    impls = [n.attrs["impl"] for n in attn]
+    for other in (again, entry):
+        if [other.nodes[n.name].attrs["impl"] for n in attn] != impls:
+            raise AssertionError("the cached decisions differ from the "
+                                 "timed ones")
+    if len(tuner.timings) != 1:
+        raise AssertionError(f"expected one timed key (the four attention "
+                             f"nodes share a shape), got {tuner.timings}")
+    times = dict(next(iter(tuner.timings.values())))
+    log(f"[tune] tuning {tune_s:.1f} s: candidates at "
+        f"[{LONGCTX_BATCH}, {S}, {cfg.embed}] float32 (the tuner's operands) "
+        f"{ {k: round(v, 4) for k, v in times.items()} } ms -> {impls[0]} "
+        f"on all {len(attn)} attention nodes (margin 1.3); the second "
+        f"tuner {again_s:.1f} s read the cache and timed nothing")
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LONGCTX_BATCH, S)).astype(np.int32)).cuda()
+    res = dict(candidates_ms=times, impls=impls, tune_s=tune_s,
+               cached_tune_s=again_s)
+    for name, graph in (("dense", ak.optimize(g)), ("tuned", tuned)):
+        net = ak.Net(graph, precision="bf16")
+        net.prediction({"input": x})
+        reset_counts()
+        y = net.prediction({"input": x})[graph.outputs[0]]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = len(attn) if name == "tuned" and impls[0] == "flash" else 0
+        if counts != dict(no_launches(), flash_attention=want):
+            raise AssertionError(f"{name}: expected {want} flash launches, "
+                                 f"got {counts}")
+        if tuple(y.shape) != (LONGCTX_BATCH, S, cfg.vocab) or \
+                not torch.isfinite(y.float()).all():
+            raise AssertionError(f"{name}: bad logits {tuple(y.shape)}")
+        ms = cuda_ms(lambda: net.prediction({"input": x}), iters=3, windows=3)
+        res[name] = dict(ms_per_batch=ms, launches=counts,
+                         tokens_per_s=LONGCTX_BATCH * S / ms * 1e3)
+        log(f"[tune] prefill {name} b{LONGCTX_BATCH} x S{S} bf16: {ms:.3f} "
+            f"ms/batch, {LONGCTX_BATCH * S / ms * 1e3:.0f} tokens/s, "
+            f"launches {counts} | {card}")
+        del net
+    report["tuned_prefill"] = res
+
+
+# ----------------------------------------------------------- CNN breadth
+
+# int8 kernel launches of one forward at 224 px
+CNN_ROUTES = {
+    "vgg16": dict(conv3x3_int8=13, matmul_int8=3),
+    "googlenet": dict(conv3x3_int8=10, matmul_int8=47),
+    "shufflenet_v1": dict(depthwise3x3_int8=16, matmul_int8=95),
+}
+# (net, precision, batch): the JAX suite's `vgg16_int8_b8` and
+# `googlenet_bf16_b8` (`tools/bench_suite.py:500-519`), GoogLeNet int8 at
+# the same batch, ShuffleNet v1 (groups 3) int8 at the MobileNet batch
+CNN_RUNS = (("vgg16", "int8", 8), ("googlenet", "bf16", 8),
+            ("googlenet", "int8", 8), ("shufflenet_v1", "int8", BATCH))
+
+
+def cnn_graph(name, batch, size=IMAGE, scales=None):
+    """The optimized graph of `name`, quantized with `scales` if given."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch import models
+    from anakin_tpu_torch.quant import quantize_graph
+
+    g = ak.optimize(getattr(models, "build_" + name)(batch=batch,
+                                                     image_size=size))
+    return g if scales is None else quantize_graph(g, scales)
+
+
+def cnn_scales(name, device=None):
+    """`calibrate(method="max")` of the b1 graph over two b1 batches from
+    default_rng(0), as the MobileNet phase calibrates."""
+    from anakin_tpu_torch.quant import calibrate
+
+    rng = np.random.default_rng(0)
+    cal = [{"input": rng.normal(size=(1, IMAGE, IMAGE, 3)).astype(np.float32)}
+           for _ in range(2)]
+    return calibrate(cnn_graph(name, 1), cal, method="max", device=device)
+
+
+def cnn_path(name, precision, batch, scales, report, card):
+    """One CNN run of phase 18: one forward with the counts set to 0 just
+    before and read just after (the int8 nets' kernels, exactly), the
+    softmax rows, ms/step, img/s and a profiled step.  Returns the int8
+    kernel calls of one forward, for the checks."""
+    import anakin_tpu_torch as ak
+
+    t0 = time.perf_counter()
+    g = cnn_graph(name, batch, scales=None if precision == "bf16" else scales)
+    net = ak.Net(g, precision="bf16")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(batch, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+    net.prediction({"input": x})                   # warm-up
+    torch.cuda.synchronize()
+    tag = f"{name} {precision}"
+    log(f"[cnn] {tag}: graph, weights and first forward "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    y = net.prediction({"input": x})[g.outputs[0]]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = CNN_ROUTES[name] if precision == "int8" else {}
+    if counts != dict(no_launches(), **want):
+        raise AssertionError(f"{tag}: expected {want} launches, got {counts}")
+    yf = y.float()
+    if tuple(y.shape) != (batch, 1000) or not torch.isfinite(yf).all():
+        raise AssertionError(f"{tag}: bad output {tuple(y.shape)}")
+    if (yf.sum(-1) - 1).abs().max() > 2e-2:  # bf16 softmax rows
+        raise AssertionError(f"{tag}: softmax rows do not sum to 1")
+    step_ms = cuda_ms(lambda: net.prediction({"input": x}), iters=5,
+                      windows=3)
+    res = dict(batch=batch, image=IMAGE, net_precision="bf16",
+               weights=precision, launches=counts, ms_per_step=step_ms,
+               img_per_s=batch / step_ms * 1e3)
+    log(f"[cnn] {tag} b{batch} {IMAGE}px: {step_ms:.3f} ms/step, "
+        f"{batch / step_ms * 1e3:.1f} img/s; launches {counts} | {card}")
+    res["profile"] = profile_step(lambda: net.prediction({"input": x}),
+                                  step_ms, f"cnn {tag}")
+    report.setdefault("cnn", {})[f"{name}_{precision}_b{batch}"] = res
+    return cnn_calls(g) if precision == "int8" else []
+
+
+def cnn_calls(g):
+    """The int8 kernel calls of one forward of `g`, its edge shapes from
+    shape inference (no forward needed)."""
+    from anakin_tpu_torch.graph.shape_infer import infer_shapes
+
+    return kernel_calls(g, {k: tuple(v.shape)
+                            for k, v in infer_shapes(g).items()})
+
+
+def cnn_kernel_checks(report, calls):
+    """Every distinct int8 kernel shape of the CNN paths (`calls`, by net)
+    against its plain version on the card, untimed: int8 outputs equal,
+    float outputs within rtol 1e-6."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    distinct = {}
+    for net_calls in calls.values():
+        for kernel, cfg in net_calls:
+            distinct.setdefault(
+                (kernel, tuple(sorted(cfg.items(), key=lambda kv: kv[0]))), 0)
+    results = []
+    for kernel, items in distinct:
+        cfg = dict(items)
+        r = (check_dw(cfg, gen, timed=False) if kernel == "depthwise3x3_int8"
+             else check_kernel(kernel, cfg, gen, timed=False))
+        r["calls_per_run"] = 0  # the kernels line's runs are the ResNet's
+        results.append(r)
+    by_kernel = {}
+    for r in results:
+        by_kernel.setdefault(r["kernel"], []).append(r)
+    for kernel, rs in by_kernel.items():
+        log(f"[cnn kernels] {kernel}: {len(rs)} distinct shapes, max abs err "
+            f"{max(r['max_abs_err'] for r in rs):g}; e.g. " + "; ".join(
+                "x".join(str(r[k]) for k in (
+                    ("N", "H", "W", "C") if kernel != "matmul_int8"
+                    else ("M", "K", "N"))) for r in rs[:6]))
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"kernel differs from its plain version: {bad}")
+    report["cnn_kernel_checks"] = [
+        {k: v for k, v in r.items() if k not in ("ms", "plain_ms",
+                                                 "library_ms")}
+        for r in results]
+    return results
+
+
+# card against CPU, a float32 ResNet-50 of conv2d_w8 nodes: cuDNN's and
+# oneDNN's float32 convolutions sum in other orders through 53 layers
+W8_LOGIT_TOL = 1e-3
+
+
+def cnn_cpu_gpu(report):
+    """The CNNs at b2, 64 px, card against CPU, node by node on the CPU's
+    inputs (int8 kernel outputs equal, other int8 outputs within 1 LSB,
+    float outputs within 8e-3); then a `conv2d_w8` ResNet-50
+    (`weight_only_quantize(bits=8)`) at b2, 64 px in float32 (logits
+    within W8_LOGIT_TOL of the largest), GoogLeNet after
+    `horizontal_combine` equal to the uncombined graph on the card (within
+    1e-4 of each output's largest value: cuDNN picks its own algorithm for
+    the wider conv), and a `moe_ffn` node card against CPU (within 1e-5 of
+    the largest value)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import Node
+    from anakin_tpu_torch.graph.passes import horizontal_combine
+    from anakin_tpu_torch.models import build_resnet50
+    from anakin_tpu_torch.ops import get_op
+    from anakin_tpu_torch.quant import calibrate, weight_only_quantize
+
+    x2 = np.random.default_rng(2).normal(size=(2, 64, 64, 3)).astype(
+        np.float32)
+    res = {}
+    for name in CNN_ROUTES:
+        g = cnn_graph(name, 2, size=64)
+        gq = cnn_graph(name, 2, size=64, scales=calibrate(
+            g, [{"input": x2}], method="max", device="cpu"))
+        edges = [e for n in gq.nodes.values() for e in n.outputs]
+        y_cpu = ak.Net(gq, "bf16", device="cpu", tap_edges=edges).prediction(
+            {"input": x2})
+        kernel_lsb, other_lsb, float_rel = _node_by_node(gq, x2, y_cpu)
+        res[name] = dict(node_kernel_max_lsb=kernel_lsb,
+                         node_other_max_lsb=other_lsb,
+                         node_float_max_rel=float_rel)
+        log(f"[cpu/gpu {name}] b2 64px node by node on the CPU's inputs: int8 "
+            f"kernel outputs max diff {kernel_lsb} LSB, other int8 outputs "
+            f"{other_lsb} LSB, float outputs max rel diff {float_rel:.3g}")
+        if kernel_lsb or other_lsb > 1 or float_rel > 8e-3:
+            raise AssertionError(f"{name}: a node differs between the card "
+                                 f"and the CPU on the same inputs")
+
+    gw = weight_only_quantize(ak.optimize(build_resnet50(batch=2,
+                                                         image_size=64)),
+                              bits=8)
+    n_w8 = sum(n.op == "conv2d_w8" for n in gw.nodes.values())
+    logits = next(n.outputs[0] for n in gw.nodes.values()
+                  if n.op == "dense_w8")
+    lg = ak.Net(gw, tap_edges=[logits]).prediction({"input": x2})[
+        logits].cpu()
+    lc = ak.Net(gw, device="cpu", tap_edges=[logits]).prediction(
+        {"input": x2})[logits]
+    err = float((lg - lc).abs().max() / lc.abs().max())
+    log(f"[cpu/gpu w8] ResNet-50 weight-only int8 ({n_w8} conv2d_w8 nodes) "
+        f"b2 64px float32: logits max diff {err:.3g} of the largest "
+        f"(tolerance {W8_LOGIT_TOL:g}), top-1 gpu {lg.argmax(-1).tolist()} "
+        f"cpu {lc.argmax(-1).tolist()}")
+    if not n_w8 or err > W8_LOGIT_TOL:
+        raise AssertionError(f"conv2d_w8: card and CPU logits differ by {err}")
+    res["conv2d_w8_logits_max_rel"] = err
+
+    g = cnn_graph("googlenet", 2, size=64)
+    gc = horizontal_combine(g)
+    n_slice = sum(n.op == "slice" for n in gc.nodes.values())
+    if n_slice != 9:
+        raise AssertionError(f"horizontal_combine made {n_slice} slices")
+    taps = [n.outputs[0] for n in g.nodes.values() if n.op == "concat"]
+    ya = ak.Net(gc, tap_edges=taps).prediction({"input": x2})
+    yb = ak.Net(g, tap_edges=taps).prediction({"input": x2})
+    comb = max(float((ya[e] - yb[e]).abs().max() / yb[e].abs().max())
+               for e in taps + list(g.outputs))
+    log(f"[cpu/gpu combine] GoogLeNet b2 64px float32 on the card, "
+        f"horizontal_combine ({n_slice} slices) against the uncombined "
+        f"graph: max diff {comb:.3g} of each output's largest")
+    if comb > 1e-4:
+        raise AssertionError(f"horizontal_combine changed the outputs: {comb}")
+    res["horizontal_combine_max_rel"] = comb
+
+    rng = np.random.default_rng(5)
+    ins = [rng.normal(size=(2, 16, 64)).astype(np.float32),
+           rng.normal(size=(64, 8)).astype(np.float32),
+           rng.normal(size=(8, 64, 128)).astype(np.float32) * 0.1,
+           rng.normal(size=(8, 128, 64)).astype(np.float32) * 0.1]
+    node = Node("moe", "moe_ffn", ["x", "g", "u", "d"], ["y"],
+                dict(top_k=2, activation="gelu"))
+    ts = [torch.from_numpy(a) for a in ins]
+    yc = get_op("moe_ffn")(node, ts)[0]
+    yg = get_op("moe_ffn")(node, [t.cuda() for t in ts])[0].cpu()
+    moe = float((yg - yc).abs().max() / yc.abs().max())
+    log(f"[cpu/gpu moe] moe_ffn [2, 16, 64] x 8 experts top 2, float32: max "
+        f"diff {moe:.3g} of the largest")
+    if moe > 1e-5:
+        raise AssertionError(f"moe_ffn card and CPU differ: {moe}")
+    res["moe_ffn_max_rel"] = moe
+    report["cnn_cpu_gpu"] = res
+
+
+def cnn_phases(report, card):
+    """Phase 18: calibrate each CNN on the card, the four runs, every
+    distinct int8 kernel shape checked, then card against CPU.  Returns
+    the kernel check rows."""
+    t0 = time.perf_counter()
+    scales = {name: cnn_scales(name) for name in CNN_ROUTES}
+    log(f"[cnn] calibrate on the card: {time.perf_counter() - t0:.1f} s")
+    calls = {}
+    for name, precision, batch in CNN_RUNS:
+        got = cnn_path(name, precision, batch, scales[name], report, card)
+        if got:
+            calls[f"{name}_{precision}"] = got
+    log(f"[time] phase 18 runs done at {time.perf_counter() - t0:.0f} s")
+    results = cnn_kernel_checks(report, calls)
+    log(f"[time] phase 18 kernel checks done at "
+        f"{time.perf_counter() - t0:.0f} s")
+    cnn_cpu_gpu(report)
+    log(f"[time] phase 18 took {time.perf_counter() - t0:.0f} s")
+    return results
+
+
 def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 7 and 13 only: build, then flash_attention "
-                         "and matmul_w4 v1/v2 against their plain versions "
+                    help="phases 1, 7 and 13 and phase 18's kernel checks "
+                         "only: build, then flash_attention and matmul_w4 "
+                         "v1/v2 against their plain versions, and the int8 "
+                         "kernels at every distinct shape of the CNN paths "
                          "(no main path, so no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2326,6 +2905,10 @@ def main(argv) -> int:
         cfg = TransformerConfig(**LLM_CFG)
         llm_kernels(report, cfg)
         w4_v2_kernels(report, cfg)
+        cnn_kernel_checks(report, {
+            f"{name}_int8": cnn_calls(cnn_graph(name, batch,
+                                                scales=cnn_scales(name)))
+            for name, precision, batch in CNN_RUNS if precision == "int8"})
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with open(os.path.join(ROOT, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(report, f, indent=1)
@@ -2378,7 +2961,22 @@ def main(argv) -> int:
 
     # ------------------------------------------------------- 15. scheduler
     report["scheduler_launches"] = scheduler_phase(report, cfg, params, card)
+    log(f"[time] scheduler phase done at {time.perf_counter() - t_start:.0f} s")
+
+    # ----------------------------------------------------- 16. speculative
+    speculative_phase(report, cfg, params, card)
     del params
+    torch.cuda.empty_cache()
+    log(f"[time] speculative phase done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------- 17. tuned long-context prefill
+    tuned_prefill_phase(report, card)
+    log(f"[time] tuned prefill phase done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ----------------------------------------------------- 18. CNN breadth
+    results += cnn_phases(report, card)
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)

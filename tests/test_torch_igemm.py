@@ -172,19 +172,30 @@ def test_resnet_net_prepares_each_int8_weight_once(rng, precision):
 
 def test_prepare_int8_weights_shares_a_weight_between_nodes(rng):
     """Two nodes on one weight edge get one prepared copy; depthwise convs
-    (their own kernel, weights as they are) get none."""
+    on `depthwise3x3_int8` (their own kernel, weights as they are) get
+    none; any other grouped conv (here the same weight at pad 0, which the
+    JAX package leaves to XLA and the port runs on `matmul_int8` once per
+    group) gets one copy a group."""
     from anakin_tpu_torch.graph.ir import Node
+    from anakin_tpu_torch.ops.quantized import PreparedGroups
 
     w = torch.from_numpy(_i8(rng, 16, 8))
     dw = torch.from_numpy(_i8(rng, 3, 3, 1, 8))
+    dw0 = torch.from_numpy(_i8(rng, 3, 3, 1, 8))
     nodes = [Node("a", "dense_int8", ["x", "w", "s"], ["y"], {}),
              Node("b", "dense_int8", ["y", "w", "s"], ["z"], {}),
-             Node("c", "conv2d_int8", ["z", "dw", "s"], ["o"], dict(groups=8)),
-             Node("d", "dense", ["o", "w"], ["p"], {})]
+             Node("c", "conv2d_int8", ["z", "dw", "s"], ["o"],
+                  dict(groups=8, padding=(1, 1))),
+             Node("d", "dense", ["o", "w"], ["p"], {}),
+             Node("e", "conv2d_int8", ["o", "dw0", "s"], ["q"],
+                  dict(groups=8))]
     before = prepare_b.calls
-    prepared = prepare_int8_weights(nodes, {"w": w, "dw": dw})
-    assert prepare_b.calls - before == 1 and set(prepared) == {"a", "b"}
+    prepared = prepare_int8_weights(nodes, {"w": w, "dw": dw, "dw0": dw0})
+    assert prepare_b.calls - before == 1 + 8
+    assert set(prepared) == {"a", "b", "e"}
     assert prepared["a"] is prepared["b"]
+    assert isinstance(prepared["e"], PreparedGroups)
+    assert prepared["e"].source is dw0 and len(prepared["e"].parts) == 8
 
 
 def test_net_device_params_shares_the_prepared_weights(rng):

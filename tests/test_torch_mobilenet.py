@@ -169,23 +169,36 @@ def test_each_node_matches_jax_node(case, precision):
 
 @pytest.mark.parametrize("groups,cin", [(2, 8), (8, 8)])
 def test_other_grouped_int8_conv_raises(groups, cin):
-    """A grouped int8 conv the port has no kernel for raises
-    NotImplementedError: a grouped conv that is not depthwise, and a
-    depthwise conv with a residual (the JAX package computes both through
-    XLA)."""
+    """A grouped int8 conv outside the depthwise kernel's conditions (a
+    grouped conv that is not depthwise, and a depthwise conv with a
+    residual) raised NotImplementedError until the grouped route was
+    ported; it now computes what the JAX package computes through XLA:
+    int8 im2col of each group's channels, then matmul_int8 once per group,
+    the output within 1e-6 of the largest value of the JAX net's."""
+    import anakin_tpu as ak
+    from anakin_tpu.graph.ir import GraphBuilder as JaxGraphBuilder
+
     rng = np.random.default_rng(3)
-    b = GraphBuilder("grouped")
-    x = b.input((1, 8, 8, cin))
-    w = b.param(rng.normal(size=(3, 3, cin // groups, cin)).astype(np.float32))
-    res = x if groups == cin else None
-    y = b.op("conv2d", [x, w] + ([res] if res else []), strides=(1, 1),
-             padding=(1, 1), groups=groups, has_residual=res is not None)
-    b.output(y)
-    g = b.finish()
+    w_val = rng.normal(size=(3, 3, cin // groups, cin)).astype(np.float32)
+
+    def graph(builder):
+        b = builder("grouped")
+        x = b.input((1, 8, 8, cin))
+        w = b.param(w_val)
+        res = x if groups == cin else None
+        y = b.op("conv2d", [x, w] + ([res] if res else []), strides=(1, 1),
+                 padding=(1, 1), groups=groups, has_residual=res is not None)
+        b.output(y)
+        return b.finish(), x, y
+
+    g, x, y = graph(GraphBuilder)
     gq = quantize_graph(g, {x: 0.02, y: 0.05})
     node = next(n for n in gq.nodes.values() if n.op == "conv2d_int8")
     assert conv_kind(node) == "dw3x3"
-    net = pt.Net(gq, device="cpu")
-    with pytest.raises(NotImplementedError, match="depthwise 3x3"):
-        net.prediction({"input": rng.normal(size=(1, 8, 8, cin))
-                        .astype(np.float32)})
+    jg, jx, jy = graph(JaxGraphBuilder)
+    inp = rng.normal(size=(1, 8, 8, cin)).astype(np.float32)
+    want = np.asarray(ak.Net(jax_quantize_graph(jg, {jx: 0.02, jy: 0.05}))
+                      .prediction({"input": inp})[jy])
+    got = pt.Net(gq, device="cpu").prediction({"input": inp})[y].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
