@@ -7,3 +7,5 @@ from . import quantized  # noqa: F401
 from . import sequence  # noqa: F401
 from . import attention  # noqa: F401
 from . import moe  # noqa: F401
+from . import detection  # noqa: F401
+from . import extended  # noqa: F401

@@ -17,16 +17,7 @@ import torch.nn.functional as F
 
 from .nn import full_fp32
 from .registry import register
-
-__all__ = ["top_k_lower_index"]
-
-
-def top_k_lower_index(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries of the last axis, ties
-    broken toward the lower index, as `lax.top_k` breaks them
-    (`torch.topk` promises no order among equal values)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+from .tensor import top_k_lower_index
 
 
 @register("moe_ffn")

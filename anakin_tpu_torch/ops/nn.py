@@ -152,6 +152,40 @@ def conv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     return [y.to(x.dtype).contiguous()]
 
 
+@register("deconv2d", "deconvolution", "deconv_relu", "deconv_batchnorm_scale",
+          "deconv_batchnorm_scale_relu")
+def deconv2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Transposed convolution, caffe output size `(in - 1) * stride +
+    kernel - 2 * pad`, then the epilogue; w: HWIO with O the output
+    channels of a group.  The JAX op's formula, exactly: x dilated by the
+    stride (zeros between its pixels), padded by kernel - 1 - pad a side
+    (a negative pad crops), then convolved with the flipped kernel at the
+    node's dilation, in float32 with TF32 off."""
+    x, w, bias, residual = _split_conv_inputs(node, xs)
+    sh, sw = pair(node.attr("strides", (1, 1)))
+    dh, dw = pair(node.attr("dilation", (1, 1)))
+    ph, pw = pair(node.attr("padding", (0, 0)))
+    groups = int(node.attr("groups", 1))
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    if groups != 1:
+        # (kh, kw, in, out per group) -> (kh, kw, in per group, groups *
+        # out per group), output channels group-major
+        in_total, opg = int(w.shape[2]), int(w.shape[3])
+        w = w.reshape(kh, kw, groups, in_total // groups, opg).permute(
+            0, 1, 3, 2, 4).reshape(kh, kw, in_total // groups, groups * opg)
+    n, h, w_, c = x.shape
+    xd = torch.zeros((n, c, (h - 1) * sh + 1, (w_ - 1) * sw + 1),
+                     dtype=torch.float32, device=x.device)
+    xd[:, :, ::sh, ::sw] = x.to(torch.float32).permute(0, 3, 1, 2)
+    pt, pl = kh - 1 - ph, kw - 1 - pw
+    xd = F.pad(xd, (pl, pl, pt, pt))
+    wf = torch.flip(w.to(x.dtype), (0, 1)).to(torch.float32).permute(3, 2, 0, 1)
+    with full_fp32():
+        y = F.conv2d(xd, wf, dilation=(dh, dw), groups=groups)
+    y = _epilogue(node, y.permute(0, 2, 3, 1), bias, residual)
+    return [y.to(x.dtype).contiguous()]
+
+
 def _pool_out_dim(in_dim: int, k: int, s: int, p: int, ceil_mode: bool) -> int:
     if ceil_mode:
         return int(math.ceil((in_dim + 2 * p - k) / s)) + 1
@@ -370,3 +404,23 @@ def dropout(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     if scale != 1.0:
         y = y * scale
     return [y]
+
+
+@register("l2_normalize", "normalize")
+def l2_normalize(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """L2 (or, with p = 1, L1) normalization across the channels, or
+    across C, H and W with `across_spatial`, in float32, then the optional
+    per-channel scale (SSD's Norm layer): x * rsqrt(sum x^2 + eps) or
+    x / (sum |x| + eps)."""
+    x = xs[0]
+    scale_w = xs[1] if len(xs) > 1 else None
+    eps = float(node.attr("eps", 1e-6))
+    dims = (1, 2, 3) if bool(node.attr("across_spatial", False)) else (3,)
+    xf = x.to(torch.float32)
+    if int(node.attr("p", 2)) == 1:
+        y = xf / (torch.sum(torch.abs(xf), dim=dims, keepdim=True) + eps)
+    else:
+        y = xf * torch.rsqrt(torch.sum(xf * xf, dim=dims, keepdim=True) + eps)
+    if scale_w is not None:
+        y = y * scale_w
+    return [y.to(x.dtype)]

@@ -15,8 +15,10 @@ net); then, on the same LLM weights and ResNet net, the distinct-position
 w4 decode ladder on matmul_w4 v2 and ResNet-50's 12 identity blocks
 through the fused bottleneck_int8, the decode scheduler serving requests
 on the LLM weights through CUDA graphs, speculative decoding on the LLM
-weights, the autotuned long-context prefill, and VGG16, GoogLeNet and
-ShuffleNet v1 at 224 px.  4-5 minutes as a
+weights, the autotuned long-context prefill, VGG16, GoogLeNet and
+ShuffleNet v1 at 224 px, the SSD300-VGG16, YOLOv3-tiny and Faster R-CNN
+detectors at b1 and full width, and the FCN-8s lite and ICNet lite
+segmentation nets.  4-5 minutes as a
 command on an H100, of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
@@ -203,10 +205,37 @@ Phases:
               by node; a `conv2d_w8` ResNet-50 card against CPU;
               `horizontal_combine` on GoogLeNet equal to the uncombined graph;
               a `moe_ffn` node card against CPU.
+ 19. detection `calibrate(method="max")` on the card, then SSD300-VGG16 (300
+              px, 21 classes), YOLOv3-tiny (416 px, 80 classes) and Faster
+              R-CNN (ResNet-50-C4, 224 px, proposals pre 1024 / post 128,
+              roi_align 14 x 14) at b1, each as a bf16 net with float and
+              with int8 weights (the JAX suite's `ssd_vgg16_bf16_b1`,
+              `faster_rcnn_*_b1`, `yolo_v3_tiny_*_b1`): one forward with the
+              counts set to 0 just before and read just after
+              (conv3x3_int8 and matmul_int8 exactly as the int8 graph's
+              nodes route them, nothing in a bf16 net), the outputs checked
+              (slabs well-formed, YOLO boxes in the image), ms/step, a
+              profiled step (device busy share, kernel launches a step), each
+              int8 kernel's calls and distinct shapes; the forward captured
+              by `Net.compile` (outputs equal to eager, ms/step replayed);
+              every distinct int8 kernel shape bit-equal to its plain
+              version; card against CPU at b1, full width and a cut image
+              size (SSD 264, YOLO and Faster R-CNN 128 px; Faster R-CNN at
+              16 proposals), int8, node by node on the CPU's inputs (int8
+              kernel outputs equal, detection slabs and proposals valid on
+              the same rows within DET_SLAB_RTOL), then the whole net from
+              the image (reported);
+ 20. segmentation FCN-8s lite and ICNet lite at their defaults (b1, 64 px),
+              float32 and bf16 nets on the card (no int8 kernel: they have
+              no int8 route), ms/step; card against CPU: float32 logits
+              within SEG_LOGIT_TOL and label maps equal where decided; bf16
+              node by node on the CPU's inputs.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
-its last line `{"ok": true, "device": {...}}`.  `--kernels-only` runs phases
-1, 7 and 13 and phase 18's kernel checks alone (no main path, so neither of
+its last line `{"ok": true, "device": {...}}`; each entry of the kernels
+line also has `launches_by_path`, its launches in each int8 detector's
+forward.  `--kernels-only` runs phases 1, 7 and 13 and phases 18 and 19's
+kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
@@ -2708,10 +2737,12 @@ def cnn_calls(g):
                             for k, v in infer_shapes(g).items()})
 
 
-def cnn_kernel_checks(report, calls):
-    """Every distinct int8 kernel shape of the CNN paths (`calls`, by net)
+def cnn_kernel_checks(report, calls, key="cnn_kernel_checks", tag="cnn",
+                      exact=False):
+    """Every distinct int8 kernel shape of the paths in `calls` (by net)
     against its plain version on the card, untimed: int8 outputs equal,
-    float outputs within rtol 1e-6."""
+    float outputs within rtol 1e-6, or bit-equal with `exact`.  The rows
+    go to `report[key]`."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     distinct = {}
@@ -2724,13 +2755,15 @@ def cnn_kernel_checks(report, calls):
         cfg = dict(items)
         r = (check_dw(cfg, gen, timed=False) if kernel == "depthwise3x3_int8"
              else check_kernel(kernel, cfg, gen, timed=False))
+        if exact:
+            r["ok"] = r["ok"] and r["max_abs_err"] == 0
         r["calls_per_run"] = 0  # the kernels line's runs are the ResNet's
         results.append(r)
     by_kernel = {}
     for r in results:
         by_kernel.setdefault(r["kernel"], []).append(r)
     for kernel, rs in by_kernel.items():
-        log(f"[cnn kernels] {kernel}: {len(rs)} distinct shapes, max abs err "
+        log(f"[{tag} kernels] {kernel}: {len(rs)} distinct shapes, max abs err "
             f"{max(r['max_abs_err'] for r in rs):g}; e.g. " + "; ".join(
                 "x".join(str(r[k]) for k in (
                     ("N", "H", "W", "C") if kernel != "matmul_int8"
@@ -2738,7 +2771,7 @@ def cnn_kernel_checks(report, calls):
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
-    report["cnn_kernel_checks"] = [
+    report[key] = [
         {k: v for k, v in r.items() if k not in ("ms", "plain_ms",
                                                  "library_ms")}
         for r in results]
@@ -2864,16 +2897,400 @@ def cnn_phases(report, card):
     return results
 
 
+# ------------------------------------------------------------- detection
+
+# the JAX suite's detection nets, b1 at full width (`tools/bench_suite.py:
+# 506-510, 533-561`): SSD300-VGG16 (21 classes), YOLOv3-tiny at 416 px (80
+# classes), Faster R-CNN (ResNet-50-C4, base_width 64, pre 1024 / post 128
+# proposals, roi_align 14 x 14) at 224 px; each in bf16 and int8 (the suite
+# runs SSD in bf16 only)
+DET_NETS = {"ssd_vgg16": 300, "yolo_v3_tiny": 416, "faster_rcnn": 224}
+# card against CPU at b1, full width, a cut image size (SSD's extra layers
+# need 257 px or more) and, for Faster R-CNN, 16 proposals from the top 256
+# in place of 128 from 1024 (the CPU's int8 plain versions accumulate in
+# int64 without BLAS: 128 ROIs through stage 4 take minutes there)
+DET_CPU_CUTS = {"ssd_vgg16": (264, {}), "yolo_v3_tiny": (128, {}),
+                "faster_rcnn": (128, dict(pre_nms_top_n=256,
+                                          post_nms_top_n=16))}
+# a detection op on the card against the CPU on the same inputs: the
+# decode's `exp` and the IoU round their last bits apart (relative to the
+# slab's largest value)
+DET_SLAB_RTOL = 1e-5
+DET_SLAB_OPS = ("detection_output", "rcnn_detection_output")
+DET_PROPOSAL_OPS = ("generate_proposals",)
+
+
+def det_graph(name, size, scales=None, **kw):
+    """The optimized b1 graph of `name` at `size` px (builder arguments
+    `kw`), quantized with `scales` if given."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch import models
+    from anakin_tpu_torch.quant import quantize_graph
+
+    g = ak.optimize(getattr(models, "build_" + name)(batch=1,
+                                                     image_size=size, **kw))
+    return g if scales is None else quantize_graph(g, scales)
+
+
+def det_feed(name, size, rng):
+    """A b1 feed: the image from `rng` and the net's image-size input."""
+    feed = {"input": rng.normal(size=(1, size, size, 3)).astype(np.float32)}
+    if name == "yolo_v3_tiny":
+        feed["img_size"] = np.array([[size, size]], np.int32)
+    elif name == "faster_rcnn":
+        feed["im_info"] = np.array([[size, size, 1.0]], np.float32)
+    return feed
+
+
+def det_scales(name, size, device=None):
+    """`calibrate(method="max")` of the b1 graph over two b1 feeds from
+    default_rng(0), as the JAX suite calibrates its detectors."""
+    from anakin_tpu_torch.quant import calibrate
+
+    rng = np.random.default_rng(0)
+    return calibrate(det_graph(name, size),
+                     [det_feed(name, size, rng) for _ in range(2)],
+                     method="max", device=device)
+
+
+def det_slab_rows(slab, valid_col=2):
+    """(valid mask, valid rows) of a [B, K, 7] slab (score > 0) or of
+    proposals [B, R, 5] (corners not all -1), on the host."""
+    s = slab.float().cpu()
+    valid = (s[..., valid_col] > 0 if s.shape[-1] == 7
+             else ~(s[..., 1:] == -1).all(-1))
+    return valid, s[valid]
+
+
+def det_check_outputs(name, g, out, size, tag):
+    """The outputs a detector must give: finite, of the expected shapes;
+    a slab's valid rows hold image 0, a label in 1..C-1, a score in
+    (0, 1] and finite corners, its other rows -1; YOLO's boxes lie in the
+    image and its scores in [0, 1].  Returns the valid rows' count."""
+    outs = [out[e] for e in g.outputs]
+    for o in outs:
+        if not torch.isfinite(o.float()).all():
+            raise AssertionError(f"{tag}: a non-finite output")
+    if name == "yolo_v3_tiny":
+        # the clip's bound size - 1 as the boxes' dtype holds it (415 is
+        # 416 in bf16)
+        top = float(torch.tensor(size - 1.0).to(outs[0].dtype))
+        boxes, scores = (o.float() for o in outs)
+        n = 3 * ((size // 32) ** 2 + (size // 16) ** 2)
+        if tuple(boxes.shape) != (1, n, 4) or tuple(scores.shape) != (1, n, 80):
+            raise AssertionError(f"{tag}: shapes {boxes.shape} {scores.shape}")
+        if boxes.min() < 0 or boxes.max() > top or scores.min() < 0 \
+                or scores.max() > 1:
+            raise AssertionError(f"{tag}: boxes or scores out of range")
+        return int((scores > 0).any(-1).sum())
+    slab = outs[0]
+    n_cls, keep = (21, 200) if name == "ssd_vgg16" else (21, 100)
+    if tuple(slab.shape) != (1, keep, 7):
+        raise AssertionError(f"{tag}: slab shape {tuple(slab.shape)}")
+    valid, rows = det_slab_rows(slab)
+    s = slab.float().cpu()
+    if not ((s[~valid][:, 1:] == -1).all() and (rows[:, 0] == 0).all()
+            and (rows[:, 1] >= 1).all() and (rows[:, 1] <= n_cls - 1).all()
+            and (rows[:, 2] <= 1).all()):
+        raise AssertionError(f"{tag}: a malformed slab")
+    if name == "faster_rcnn" and tuple(outs[1].shape) != (128, n_cls):
+        raise AssertionError(f"{tag}: cls_prob shape {tuple(outs[1].shape)}")
+    return int(valid.sum())
+
+
+def det_path(name, precision, scales, report, card):
+    """One detector run of phase 19: one b1 forward with the counts set to
+    0 just before and read just after (an int8 net's conv3x3_int8 and
+    matmul_int8 calls exactly, a bf16 net none), its outputs checked,
+    ms/step, a profiled step (device busy share, kernel launches a step),
+    then the forward captured by `Net.compile`: outputs equal to the eager
+    forward's, ms/step of the replay.
+    Returns the int8 kernel calls of one forward, for the checks."""
+    import anakin_tpu_torch as ak
+
+    size = DET_NETS[name]
+    t0 = time.perf_counter()
+    g = det_graph(name, size, scales=None if precision == "bf16" else scales)
+    # Faster R-CNN's proposals: how many rows NMS left empty (ROADMAP §3
+    # item 13: the second stage does not take them as invalid)
+    rois = [n.outputs[0] for n in g.nodes.values()
+            if n.op == "generate_proposals"]
+    net = ak.Net(g, precision="bf16", tap_edges=rois)
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in det_feed(name, size, np.random.default_rng(1)).items()}
+    net.prediction(feed)                           # warm-up
+    torch.cuda.synchronize()
+    tag = f"{name} {precision}"
+    log(f"[det] {tag}: graph, weights and first forward "
+        f"{time.perf_counter() - t0:.1f} s")
+    calls = cnn_calls(g) if precision == "int8" else []
+    want = {}
+    for kernel, _ in calls:
+        want[kernel] = want.get(kernel, 0) + 1
+    reset_counts()
+    out = net.prediction(feed)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != dict(no_launches(), **want):
+        raise AssertionError(f"{tag}: expected {want} launches, got {counts}")
+    n_valid = det_check_outputs(name, g, out, size, tag)
+    empty = [int((~det_slab_rows(out[e])[0]).sum()) for e in rois]
+    step_ms = cuda_ms(lambda: net.prediction(feed), iters=5, windows=3)
+    prof = profile_step(lambda: net.prediction(feed), step_ms, f"det {tag}")
+    # the same forward captured in one CUDA graph (`Net.compile`): the
+    # heads read nothing on the host, so it captures; its outputs must
+    # equal the eager forward's
+    step = net.compile(feed)
+    cap = step(feed)
+    torch.cuda.synchronize()
+    if not all(torch.equal(cap[e], out[e]) for e in g.outputs):
+        raise AssertionError(f"{tag}: the captured forward differs from "
+                             f"the eager one")
+    captured_ms = cuda_ms(lambda: step(feed), iters=10, windows=3)
+    del step, cap
+    shapes = {}
+    for kernel, cfg in calls:
+        shapes.setdefault(kernel, set()).add(tuple(sorted(cfg.items())))
+    per_kernel = {k: dict(calls=want[k], distinct_shapes=len(v))
+                  for k, v in shapes.items()}
+    log(f"[det] {tag} b1 {size}px: {step_ms:.3f} ms/step eager, "
+        f"{captured_ms:.3f} captured, device busy "
+        f"{100 * prof['busy_share_of_step']:.1f}% (eager), "
+        f"{prof['kernel_launches']} kernel launches a step; int8 kernels "
+        f"{per_kernel}; {n_valid} valid detections"
+        + (f", {empty[0]} empty proposal rows" if empty else "")
+        + f" | {card}")
+    report.setdefault("detection", {})[f"{name}_{precision}_b1"] = dict(
+        image=size, net_precision="bf16", weights=precision, launches=counts,
+        int8_kernels=per_kernel, ms_per_step=step_ms,
+        captured_ms_per_step=captured_ms, valid=n_valid,
+        empty_proposal_rows=empty, profile=prof)
+    return calls
+
+
+def det_node_by_node(gq, taps, what):
+    """Each node of `gq` on the card, fed the CPU net's values of its
+    inputs, against the CPU net's values of its outputs: int8 outputs of
+    the int8 kernels equal, other int8 outputs within 1 LSB, detection
+    slabs and proposals valid on the same rows within DET_SLAB_RTOL of
+    their largest value, float outputs within 8e-3 of their largest (bf16
+    rounding after sums in other orders).  Returns the largest of each."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.runtime.net import build_forward
+
+    net = ak.Net(gq, "bf16")
+    worst = dict(kernel_lsb=0, other_lsb=0, slab_rel=0.0, float_rel=0.0)
+    for node in topological_order(gq):
+        fwd, _ = build_forward(gq, "bf16", start_from=node.name,
+                               stop_at=node.name)
+        feed = {e: taps[e].cuda() for e in node.inputs if e not in gq.params}
+        with torch.inference_mode():
+            ys = fwd(net.params, feed, net.prepared)
+        for e in node.outputs:
+            a, b = ys[e].cpu(), taps[e]
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{what} {node.name}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            if node.op in DET_SLAB_OPS + DET_PROPOSAL_OPS:
+                va, ra = det_slab_rows(a)
+                vb, rb = det_slab_rows(b)
+                if not torch.equal(va, vb):
+                    raise AssertionError(f"{what} {node.name}: other valid "
+                                         f"rows on the card")
+                d = float((ra - rb).abs().max() / b.float().abs().max()
+                          .clamp_min(1e-30)) if len(rb) else 0.0
+                worst["slab_rel"] = max(worst["slab_rel"], d)
+            elif b.dtype == torch.int8:
+                d = int((a.int() - b.int()).abs().max())
+                k = ("kernel_lsb" if node.op in ("conv2d_int8", "dense_int8")
+                     else "other_lsb")
+                worst[k] = max(worst[k], d)
+            elif b.is_floating_point():
+                d = float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max().clamp_min(1e-30))
+                worst["float_rel"] = max(worst["float_rel"], d)
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{what} {node.name}: {e} differs")
+    if (worst["kernel_lsb"] or worst["other_lsb"] > 1
+            or worst["slab_rel"] > DET_SLAB_RTOL or worst["float_rel"] > 8e-3):
+        raise AssertionError(f"{what}: a node differs between the card and "
+                             f"the CPU on the same inputs: {worst}")
+    return worst
+
+
+def det_cpu_gpu(report):
+    """The three int8 detectors at b1 and their cuts (DET_CPU_CUTS), card
+    against CPU: calibrated on the CPU, every node on the card fed the CPU
+    net's inputs (`det_node_by_node`); then the whole net from the image
+    on both devices, the valid rows of its slab compared (information: a
+    bf16 rounding apart in the float ops before an int8 node can move one
+    of its inputs by 1 LSB, and the detections with it)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.quant import calibrate, quantize_graph
+
+    res = {}
+    for name, (size, kw) in DET_CPU_CUTS.items():
+        t0 = time.perf_counter()
+        feed = det_feed(name, size, np.random.default_rng(2))
+        g = det_graph(name, size, **kw)
+        gq = quantize_graph(g, calibrate(g, [feed], method="max",
+                                         device="cpu"))
+        edges = [e for n in topological_order(gq) for e in n.outputs]
+        taps = ak.Net(gq, "bf16", device="cpu", tap_edges=edges).prediction(
+            feed)
+        taps.update({k: torch.from_numpy(v) for k, v in feed.items()})
+        worst = det_node_by_node(gq, taps, f"{name} {size}px")
+        out = ak.Net(gq, "bf16").prediction(feed)
+        whole = {}
+        for e in gq.outputs:
+            node = next(n for n in gq.nodes.values() if e in n.outputs)
+            if node.op in DET_SLAB_OPS:
+                va, ra = det_slab_rows(out[e])
+                vb, rb = det_slab_rows(taps[e])
+                whole[e] = dict(valid_card=int(va.sum()),
+                                valid_cpu=int(vb.sum()),
+                                rows_equal=bool(torch.equal(va, vb)
+                                                and torch.equal(ra, rb)))
+            else:
+                whole[e] = float((out[e].cpu().float() - taps[e].float())
+                                 .abs().max() / taps[e].float().abs().max()
+                                 .clamp_min(1e-30))
+        res[name] = dict(size=size, cut=kw, node_by_node=worst,
+                         whole_net=whole)
+        log(f"[cpu/gpu det] {name} int8 b1 {size}px node by node on the "
+            f"CPU's inputs: {worst}; whole net from the image: {whole} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    report["det_cpu_gpu"] = res
+
+
+def det_phase(report, card):
+    """Phase 19: calibrate each detector on the card, the six runs (bf16
+    and int8), every distinct int8 kernel shape bit-equal to its plain
+    version, then card against CPU.  Returns the int8 runs' kernel calls
+    by net."""
+    t0 = time.perf_counter()
+    scales = {name: det_scales(name, size) for name, size in DET_NETS.items()}
+    log(f"[det] calibrate on the card: {time.perf_counter() - t0:.1f} s")
+    calls = {}
+    for name in DET_NETS:
+        for precision in ("bf16", "int8"):
+            got = det_path(name, precision, scales[name], report, card)
+            if got:
+                calls[f"{name}_int8"] = got
+    log(f"[time] phase 19 runs done at {time.perf_counter() - t0:.0f} s")
+    cnn_kernel_checks(report, calls, key="det_kernel_checks", tag="det",
+                      exact=True)
+    log(f"[time] phase 19 kernel checks done at "
+        f"{time.perf_counter() - t0:.0f} s")
+    det_cpu_gpu(report)
+    log(f"[time] phase 19 took {time.perf_counter() - t0:.0f} s")
+    return calls
+
+
+# ---------------------------------------------------------- segmentation
+
+# the builders' defaults: b1, 64 px (FCN-8s lite 21 classes, ICNet lite 19)
+SEG_NETS = {"fcn8s_lite": 21, "icnet_lite": 19}   # name -> classes
+# float32 logits card against CPU, of the largest: cuDNN's and oneDNN's
+# float32 convolutions sum in other orders through up to 9 layers
+SEG_LOGIT_TOL = 1e-4
+
+
+def seg_phase(report, card):
+    """Phase 20: FCN-8s lite and ICNet lite at their defaults, float32 and
+    bf16, on the card: no int8 kernel launches (they have no int8 route),
+    ms/step; card against CPU: the float32 logits within SEG_LOGIT_TOL of
+    the largest and the label maps equal where a pixel's two largest
+    logits are apart by more than that; the bf16 net node by node on the
+    CPU's inputs (float outputs within 8e-3 of their largest, the label
+    map equal)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch import models
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.runtime.net import build_forward
+
+    t0 = time.perf_counter()
+    res = {}
+    for name in SEG_NETS:
+        g = ak.optimize(getattr(models, "build_" + name)())
+        size = g.input_specs["input"][0][1]
+        x = np.random.default_rng(3).normal(size=(1, size, size, 3)).astype(
+            np.float32)
+        logits_e, labels_e = g.outputs
+        r = {}
+        for precision in ("fp32", "bf16"):
+            net = ak.Net(g, precision=precision)
+            xc = torch.from_numpy(x).cuda()
+            net.prediction({"input": xc})
+            reset_counts()
+            out = net.prediction({"input": xc})
+            torch.cuda.synchronize()
+            if read_counts() != no_launches():
+                raise AssertionError(f"{name}: a kernel launched")
+            if (tuple(out[logits_e].shape) != (1, size, size, SEG_NETS[name])
+                    or tuple(out[labels_e].shape) != (1, size, size, 1)
+                    or not torch.isfinite(out[logits_e].float()).all()):
+                raise AssertionError(f"{name} {precision}: bad logits")
+            ms = cuda_ms(lambda: net.prediction({"input": xc}), iters=5,
+                         windows=3)
+            edges = [e for n in topological_order(g) for e in n.outputs]
+            cpu = ak.Net(g, precision=precision, device="cpu",
+                         tap_edges=edges).prediction({"input": x})
+            if precision == "fp32":
+                lg, lc = out[logits_e].cpu(), cpu[logits_e]
+                err = float((lg - lc).abs().max() / lc.abs().max())
+                top2 = torch.topk(lc, 2, dim=-1).values
+                clear = (top2[..., 0] - top2[..., 1]) > SEG_LOGIT_TOL * float(
+                    lc.abs().max())
+                same = bool(torch.equal(out[labels_e].cpu()[..., 0][clear],
+                                        cpu[labels_e][..., 0][clear]))
+                r[precision] = dict(ms_per_step=ms, logits_max_rel=err,
+                                    labels_equal_where_clear=same,
+                                    clear_share=float(clear.float().mean()))
+                if err > SEG_LOGIT_TOL or not same:
+                    raise AssertionError(f"{name} fp32: card and CPU differ: "
+                                         f"{r[precision]}")
+            else:
+                worst = 0.0
+                for node in topological_order(g):
+                    fwd, _ = build_forward(g, "bf16", start_from=node.name,
+                                           stop_at=node.name)
+                    feed = {e: (cpu[e] if e in cpu else torch.from_numpy(x))
+                            .cuda() for e in node.inputs if e not in g.params}
+                    with torch.inference_mode():
+                        a = fwd(net.params, feed)[node.outputs[0]].cpu()
+                    b = cpu[node.outputs[0]]
+                    if node.op == "argmax":
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"{name} bf16: labels differ"
+                                                 f" on the same logits")
+                        continue
+                    worst = max(worst, float((a.float() - b.float()).abs().max()
+                                             / b.float().abs().max()))
+                r[precision] = dict(ms_per_step=ms, node_float_max_rel=worst)
+                if worst > 8e-3:
+                    raise AssertionError(f"{name} bf16: a node differs: {worst}")
+            log(f"[seg] {name} {precision} b1 {size}px: {ms:.3f} ms/step; card "
+                f"vs CPU {r[precision]} | {card}")
+        res[name] = r
+    report["segmentation"] = res
+    log(f"[time] phase 20 took {time.perf_counter() - t0:.0f} s")
+
+
 def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 7 and 13 and phase 18's kernel checks "
-                         "only: build, then flash_attention and matmul_w4 "
-                         "v1/v2 against their plain versions, and the int8 "
-                         "kernels at every distinct shape of the CNN paths "
-                         "(no main path, so no result line)")
+                    help="phases 1, 7 and 13 and phases 18 and 19's kernel "
+                         "checks only: build, then flash_attention and "
+                         "matmul_w4 v1/v2 against their plain versions, and "
+                         "the int8 kernels at every distinct shape of the CNN "
+                         "and detection paths (no main path, so no result "
+                         "line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2909,6 +3326,10 @@ def main(argv) -> int:
             f"{name}_int8": cnn_calls(cnn_graph(name, batch,
                                                 scales=cnn_scales(name)))
             for name, precision, batch in CNN_RUNS if precision == "int8"})
+        cnn_kernel_checks(report, {
+            name: cnn_calls(det_graph(name, size, det_scales(name, size)))
+            for name, size in DET_NETS.items()}, key="det_kernel_checks",
+            tag="det", exact=True)
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with open(os.path.join(ROOT, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(report, f, indent=1)
@@ -2977,9 +3398,18 @@ def main(argv) -> int:
 
     # ----------------------------------------------------- 18. CNN breadth
     results += cnn_phases(report, card)
+    log(f"[time] CNN phase done at {time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------- 19-20. detection, segmentation
+    det_calls = det_phase(report, card)
+    seg_phase(report, card)
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)
+    for k in kernels:  # the detectors' int8 runs, each counted in its run
+        k["launches_by_path"] = {
+            f"{net}_b1": sum(1 for kernel, _ in calls if kernel == k["name"])
+            for net, calls in det_calls.items()}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(report, kernels=kernels), f, indent=1)

@@ -56,7 +56,7 @@ from anakin_tpu_torch.convert import graph_from_jax, params_from_numpy
 from anakin_tpu_torch.graph.ir import GraphBuilder, topological_order
 from anakin_tpu_torch.graph.passes import horizontal_combine, stride_up
 from anakin_tpu_torch.ops import quantized as port_quantized
-from anakin_tpu_torch.ops.moe import top_k_lower_index
+from anakin_tpu_torch.ops.tensor import top_k_lower_index
 from anakin_tpu_torch.ops.quantized import PreparedGroups
 from anakin_tpu_torch.quant import quantize_graph, weight_only_quantize
 from anakin_tpu_torch.runtime.net import build_forward
