@@ -44,12 +44,15 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .flash_attention import takes_head_dim
+
 __all__ = ["AutoTuner", "autotune_graph"]
 
 _CACHE_SCHEMA = 4  # bump when _node_key fields change; older entries drop
 _WINDOWS = 3       # timed windows per candidate (median)
 _CALLS = 5         # chained calls per window
 _ATTENTION_FROM = 512  # below it the dense path is kept untimed, as in JAX
+_TIMED_DTYPE = torch.float32  # the float operands `_operands` makes
 
 _log = logging.getLogger("anakin_tpu_torch")
 
@@ -144,11 +147,16 @@ def _node_key(node, shapes, device: torch.device) -> str:
 def _attention_candidates(node, shapes):
     """(baseline, candidates) of an attention node at S >= 512, else None:
     below it the dense path is kept (the JAX package's measured
-    crossover)."""
+    crossover).  Flash is a candidate only where the CUDA kernel takes the
+    node's head dim in the dtype the tuner times (`_TIMED_DTYPE`); else
+    dense is kept untimed."""
     if node.op not in ("multi_head_attention", "mha_prefill"):
         return None
     if shapes[node.inputs[0]].shape[1] < _ATTENTION_FROM:
         return None
+    D = shapes[node.inputs[1]].shape[1] // int(node.attr("num_heads"))
+    if not takes_head_dim(D, _TIMED_DTYPE):
+        return "dense", ["dense"]
     return "dense", ["dense", "flash"]
 
 

@@ -19,7 +19,11 @@ tensor `bottleneck_int8` launches the fused Hopper kernel in
 design does about that), which equals the unfused chain `matmul_int8 ->
 conv3x3_int8 -> matmul_int8` bit for bit; on a CPU tensor it runs
 `bottleneck_int8_plain`.  The kernel takes C and P that are multiples of 64
-(ResNet's identity blocks: C = 4 P, P 64 ... 512).  A call is one launch,
+(ResNet's identity blocks: C = 4 P, P 64 ... 512); a narrower block (C or P
+not a multiple of 64, as in a ResNet at a cut width) is widened with zero
+channels (`pad_block`, for each call) and its output sliced back, which
+changes no value: a zero channel adds exactly 0 to every int32 sum, and a
+padded channel of a and b is requant(relu(0)) = 0.  A call is one launch,
 counted in `bottleneck_int8.launches`.
 """
 
@@ -29,15 +33,18 @@ import ctypes
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .conv_int8 import conv3x3_int8_plain
 from .matmul_int8 import (_OUT_KINDS, PreparedB, as_prepared,
-                          matmul_int8_plain, scale_row)
+                          matmul_int8_plain, prepare_b, scale_row)
 
-__all__ = ["bottleneck_int8", "bottleneck_int8_plain", "identity_block"]
+__all__ = ["bottleneck_int8", "bottleneck_int8_plain", "identity_block",
+           "pad_block"]
 
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: the shapes were refused
+_WIDTH = 64  # the CUDA kernel takes C and P that are multiples of this
 
 
 def bottleneck_int8_plain(x, wa, wsa, wb, wsb, wc, wsc, ba=None, bb=None,
@@ -126,6 +133,29 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _widen(n: int) -> int:
+    return -(-n // _WIDTH) * _WIDTH
+
+
+def pad_block(x, wa, wsa, wb, wsb, wc, wsc, ba=None, bb=None, bc=None):
+    """The block's operands widened to C and P that are multiples of 64:
+    x, the scales and the biases padded with zero channels, the weights
+    (raw or prepared) zero-padded and prepared.  `bottleneck_int8` of the
+    result, sliced to the first C channels, equals the narrow block's."""
+    C, P = _kn(wa)
+    c_pad, p_pad = _widen(C) - C, _widen(P) - P
+    wa_ = prepare_b(F.pad(_raw(wa, (C, P)), (0, p_pad, 0, c_pad)))
+    wb_ = prepare_b(F.pad(_raw(wb, (3, 3, P, P)), (0, p_pad, 0, p_pad)))
+    wc_ = prepare_b(F.pad(_raw(wc, (P, C)), (0, c_pad, 0, p_pad)))
+
+    def vec(v, pad):
+        return None if v is None else F.pad(v, (0, pad))
+
+    return (F.pad(x, (0, c_pad)), wa_, vec(wsa, p_pad), wb_, vec(wsb, p_pad),
+            wc_, vec(wsc, c_pad), vec(ba, p_pad), vec(bb, p_pad),
+            vec(bc, c_pad))
+
+
 def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
                     wb: Weight, wsb: torch.Tensor, wc: Weight,
                     wsc: torch.Tensor, ba: Optional[torch.Tensor] = None,
@@ -146,6 +176,9 @@ def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
         return bottleneck_int8_plain(
             x, _raw(wa, (C, P)), wsa, _raw(wb, (3, 3, P, P)), wsb,
             _raw(wc, (P, C)), wsc, ba, bb, bc, **kw)
+    if C % _WIDTH or P % _WIDTH:
+        padded = pad_block(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)
+        return bottleneck_int8(*padded, **kw)[..., :C].contiguous()
     # [N][K] with K contiguous (K = C, 9 P, P: multiples of 16, so no pad)
     wa_, wb_, wc_ = (as_prepared(w).t for w in (wa, wb, wc))
     lib = _lib()
@@ -170,9 +203,8 @@ def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
             0.0 if out_scale is None else 1.0 / float(out_scale),
             ctypes.c_void_p(stream))
     if rc == _INVALID_VALUE:
-        raise ValueError(f"the CUDA bottleneck_int8 takes C and P that are "
-                         f"multiples of 64 and one row of the image in shared "
-                         f"memory, got W {W}, C {C}, P {P}")
+        raise ValueError(f"the CUDA bottleneck_int8 needs one row of the "
+                         f"image in shared memory, got W {W}, C {C}, P {P}")
     if rc != 0:
         raise RuntimeError(f"bottleneck_int8 kernel launch failed: CUDA error "
                            f"{rc}")

@@ -1,6 +1,8 @@
 from .detection import (build_faster_rcnn, build_faster_rcnn_lite,  # noqa: F401
                         build_ssd_vgg16, build_yolo_v3_tiny)
 from .googlenet import build_googlenet, build_shufflenet_v1  # noqa: F401
+from .lstm_lm import (build_lstm_lm, build_ner_tagger,  # noqa: F401
+                      build_text_classifier)
 from .mobilenet import build_mobilenet_v1, build_mobilenet_v2  # noqa: F401
 from .resnet import (build_resnet, build_resnet50,  # noqa: F401
                      build_resnet101, identity_bottlenecks)

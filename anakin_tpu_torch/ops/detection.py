@@ -139,6 +139,13 @@ def _vector(values: Sequence[float], device) -> torch.Tensor:
                                    device=device) for v in values])
 
 
+def _div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s, s a Python number, divided on x's device as the CPU and XLA
+    divide: CUDA divides a tensor by a Python number as x * (1 / s), which
+    parts from the quotient by one bit in about a third of the elements."""
+    return x / torch.full((), float(s), dtype=x.dtype, device=x.device)
+
+
 @register("priorbox")
 def priorbox(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """SSD prior boxes of a feature map: [1, 2, H*W*P*4] float32, plane 0
@@ -183,8 +190,8 @@ def priorbox(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     cy = (torch.arange(fh, dtype=torch.float32, device=dev) + offset) * step_h
     cx = (torch.arange(fw, dtype=torch.float32, device=dev) + offset) * step_w
     cyg, cxg = (t[..., None] for t in torch.meshgrid(cy, cx, indexing="ij"))
-    boxes = torch.stack([(cxg - w / 2) / img_w, (cyg - h / 2) / img_h,
-                         (cxg + w / 2) / img_w, (cyg + h / 2) / img_h],
+    boxes = torch.stack([_div(cxg - w / 2, img_w), _div(cyg - h / 2, img_h),
+                         _div(cxg + w / 2, img_w), _div(cyg + h / 2, img_h)],
                         dim=-1).reshape(-1)
     if node.attr("clip", False):
         boxes = torch.clamp(boxes, 0.0, 1.0)
@@ -256,12 +263,12 @@ def yolo_box(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     feat = x.reshape(n, h, w, a, 5 + class_num).to(torch.float32)
     gx = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, w, 1)
     gy = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, h, 1, 1)
-    bx = (torch.sigmoid(feat[..., 0]) + gx) / w
-    by = (torch.sigmoid(feat[..., 1]) + gy) / h
+    bx = _div(torch.sigmoid(feat[..., 0]) + gx, w)
+    by = _div(torch.sigmoid(feat[..., 1]) + gy, h)
     aw = _vector(anchors[0::2], dev)
     ah = _vector(anchors[1::2], dev)
-    bw = torch.exp(feat[..., 2]) * aw / (w * downsample)
-    bh = torch.exp(feat[..., 3]) * ah / (h * downsample)
+    bw = _div(torch.exp(feat[..., 2]) * aw, w * downsample)
+    bh = _div(torch.exp(feat[..., 3]) * ah, h * downsample)
     obj = torch.sigmoid(feat[..., 4])
     cls_prob = torch.sigmoid(feat[..., 5:]) * obj[..., None]
     cls_prob = torch.where(cls_prob > conf_thresh, cls_prob,
@@ -295,12 +302,12 @@ def roi_align(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     x1, y1, x2, y2 = (rois[:, i] * spatial_scale for i in range(1, 5))
     rw = torch.clamp_min(x2 - x1, 1.0)
     rh = torch.clamp_min(y2 - y1, 1.0)
-    bin_h = (rh / ph)[:, None, None]
-    bin_w = (rw / pw)[:, None, None]
+    bin_h = _div(rh, ph)[:, None, None]
+    bin_w = _div(rw, pw)[:, None, None]
     iy = torch.arange(ph, dtype=torch.float32, device=dev)
     ix = torch.arange(pw, dtype=torch.float32, device=dev)
     sy = torch.arange(s, dtype=torch.float32, device=dev)
-    frac = (sy[None, :] + 0.5) / s
+    frac = _div(sy[None, :] + 0.5, s)
     ys = (y1[:, None, None] + (iy[:, None] + frac) * bin_h).reshape(r, ph * s)
     xs_ = (x1[:, None, None] + (ix[:, None] + frac) * bin_w).reshape(r, pw * s)
     y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, h - 1)
@@ -344,12 +351,12 @@ def roi_pool(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     neg = torch.full((), _NEG_INF, device=dev)
     rows = []
     for i in range(ph):
-        ys = (y1 + rh * i / ph)[:, None, None]
-        ye = (y1 + rh * (i + 1) / ph)[:, None, None]
+        ys = (y1 + _div(rh * i, ph))[:, None, None]
+        ye = (y1 + _div(rh * (i + 1), ph))[:, None, None]
         cells = []
         for j in range(pw):
-            xs0 = (x1 + rw * j / pw)[:, None, None]
-            xe = (x1 + rw * (j + 1) / pw)[:, None, None]
+            xs0 = (x1 + _div(rw * j, pw))[:, None, None]
+            xe = (x1 + _div(rw * (j + 1), pw))[:, None, None]
             m = ((gy >= torch.floor(ys)) & (gy < torch.ceil(ye))
                  & (gx >= torch.floor(xs0)) & (gx < torch.ceil(xe)))
             cells.append(torch.amax(torch.where(m[..., None], img, neg),

@@ -1,5 +1,5 @@
-"""Neural-net ops on NHWC activations and HWIO weights: the port of the
-ResNet and LLM paths of `anakin_tpu/ops/nn.py`.
+"""Neural-net ops on NHWC activations and HWIO weights: the port of
+`anakin_tpu/ops/nn.py`.
 
 Float convolution and dense are plain matrix work that the JAX package
 leaves to XLA, so here they go to `F.conv2d` / `torch.matmul`.  Both run in
@@ -266,7 +266,8 @@ def dense(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
 def embedding(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Token embedding lookup; ids equal to `padding_idx` give zero rows."""
     ids, table = xs[0].to(torch.int64), xs[1]
-    y = table[torch.clamp_min(ids, 0)]
+    y = table.index_select(0, torch.clamp_min(ids, 0).reshape(-1)).reshape(
+        tuple(ids.shape) + tuple(table.shape[1:]))
     pad_idx = node.attr("padding_idx", -1)
     if pad_idx is not None and pad_idx >= 0:
         y = torch.where((ids == pad_idx)[..., None], torch.zeros((), dtype=y.dtype,
@@ -424,3 +425,206 @@ def l2_normalize(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     if scale_w is not None:
         y = y * scale_w
     return [y.to(x.dtype)]
+
+
+@register("pool2d_with_index", "pooling_with_index")
+def pool2d_with_index(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Max pooling that also gives each maximum's flat spatial index h W + w
+    (int32), the windows padded with (-inf, -1); a later tap replaces the
+    kept one only when strictly larger, so a tie keeps the first in window
+    order."""
+    x = xs[0]
+    kh, kw = pair(node.attr("window", (2, 2)))
+    sh, sw = pair(node.attr("strides", (2, 2)))
+    ph, pw = pair(node.attr("padding", (0, 0)))
+    n, h, w_, c = x.shape
+    idx = (torch.arange(h, dtype=torch.int32, device=x.device)[:, None] * w_
+           + torch.arange(w_, dtype=torch.int32, device=x.device)[None, :])
+    idx = idx[None, :, :, None].expand(n, h, w_, c)
+    pads = (0, 0, pw, pw, ph, ph)
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (w_ + 2 * pw - kw) // sw + 1
+    vals = _windows(F.pad(x, pads, value=float("-inf")), kh, kw, sh, sw, oh, ow)
+    idxs = _windows(F.pad(idx, pads, value=-1), kh, kw, sh, sw, oh, ow)
+    yv = torch.full((n, oh, ow, c), float("-inf"), dtype=x.dtype,
+                    device=x.device)
+    yi = torch.full((n, oh, ow, c), -1, dtype=torch.int32, device=x.device)
+    for v, i in zip(vals, idxs):
+        take = v > yv
+        yv = torch.where(take, v, yv)
+        yi = torch.where(take, i, yi)
+    return [yv, yi]
+
+
+@register("unpool2d", "unpool")
+def unpool2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Max unpooling: each value of y [N, H, W, C] added into an [N, OH,
+    OW, C] map of zeros at its saved flat spatial index (`out_hw`), a
+    scatter-add as the JAX op's `.at[].add`: overlapping windows add into
+    one cell, a negative index counts from the end, an index still out of
+    range is dropped.  On CUDA, `scatter_add_` adds in no fixed order."""
+    y, idx = xs[0], xs[1]
+    oh, ow = pair(node.attr("out_hw"))
+    n, h, w_, c = y.shape
+    size = oh * ow
+    i = idx.reshape(n, h * w_, c).to(torch.int64)
+    i = torch.where(i < 0, i + size, i)
+    ok = (i >= 0) & (i < size)
+    vals = torch.where(ok, y.reshape(n, h * w_, c),
+                       torch.zeros((), dtype=y.dtype, device=y.device))
+    out = torch.zeros((n, size, c), dtype=y.dtype, device=y.device)
+    out.scatter_add_(1, torch.where(ok, i, 0), vals)
+    return [out.reshape(n, oh, ow, c)]
+
+
+@register("spp")
+def spp(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Spatial pyramid pooling: at each level l < `pyramid_height`, 2^l x
+    2^l bins of ceil(H / 2^l) x ceil(W / 2^l) (padded at the bottom and
+    right), max or average, each flattened (NHWC order) and concatenated.
+    The average divides by the whole bin, padding included, as the
+    reference does."""
+    x = xs[0]
+    levels = int(node.attr("pyramid_height", 3))
+    mode = node.attr("mode", "max")
+    n, h, w_, _ = x.shape
+    outs = []
+    for lvl in range(levels):
+        bins = 2 ** lvl
+        kh, kw = math.ceil(h / bins), math.ceil(w_ / bins)
+        pads = (0, 0, 0, bins * kw - w_, 0, bins * kh - h)
+        if mode == "max":
+            views = _windows(F.pad(x, pads, value=float("-inf")), kh, kw, kh,
+                             kw, bins, bins)
+            y = views[0]
+            for v in views[1:]:
+                y = torch.maximum(y, v)
+        else:
+            views = _windows(F.pad(x.to(torch.float32), pads), kh, kw, kh, kw,
+                             bins, bins)
+            y = (sum(views) / float(kh * kw)).to(x.dtype)
+        outs.append(y.reshape(n, -1))
+    return [torch.cat(outs, dim=1)]
+
+
+@register("matmul", "mat_mul", "aligned_mat_mul", "batch_gemm", "gemm")
+def matmul(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """(Batched) a @ b with optional transposes (`transpose_a`,
+    `transpose_b`), b cast to a's dtype, in float32 with TF32 off, times
+    `coeff`, then the activation, in a's dtype."""
+    a, b = xs[0], xs[1]
+    if node.attr("transpose_a", False):
+        a = a.transpose(-1, -2)
+    if node.attr("transpose_b", False):
+        b = b.transpose(-1, -2)
+    with full_fp32():
+        y = torch.matmul(a.to(torch.float32), b.to(a.dtype).to(torch.float32))
+    coeff = node.attr("coeff", 1.0)
+    if coeff != 1.0:
+        y = y * coeff
+    return [apply_activation(y, node.attr("activation"),
+                             node.attr("act_alpha", 0.0)).to(a.dtype)]
+
+
+@register("group_norm")
+def group_norm(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """GroupNorm of NHWC x over `groups` channel groups (and H, W), in
+    float32, then the optional per-channel gamma and beta."""
+    x = xs[0]
+    groups = int(node.attr("groups", 32))
+    eps = float(node.attr("eps", 1e-5))
+    n, h, w_, c = x.shape
+    xf = x.to(torch.float32).reshape(n, h, w_, groups, c // groups)
+    mu = torch.mean(xf, dim=(1, 2, 4), keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=(1, 2, 4), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(n, h, w_, c)
+    if len(xs) > 1:
+        y = y * xs[1]
+    if len(xs) > 2:
+        y = y + xs[2]
+    return [y.to(x.dtype)]
+
+
+@register("mvn")
+def mvn(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Mean-variance normalization over H, W (and C with
+    `across_channels`), in float32."""
+    x = xs[0]
+    dims = (1, 2, 3) if bool(node.attr("across_channels", False)) else (1, 2)
+    xf = x.to(torch.float32)
+    y = xf - torch.mean(xf, dim=dims, keepdim=True)
+    if bool(node.attr("normalize_variance", True)):
+        var = torch.mean(torch.square(y), dim=dims, keepdim=True)
+        y = y * torch.rsqrt(var + float(node.attr("eps", 1e-9)))
+    return [y.to(x.dtype)]
+
+
+@register("prelu")
+def prelu(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """PReLU with a learned slope per channel (last axis) or one shared
+    (`channel_shared`)."""
+    x, slope = xs[0], xs[1]
+    if node.attr("channel_shared", False):
+        a = slope.reshape(())
+    else:
+        a = slope.reshape((1,) * (x.dim() - 1) + (-1,))
+    return [torch.where(x >= 0, x, x * a.to(x.dtype))]
+
+
+@register("axpy")
+def axpy(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """a * x + b, a broadcast (SENet-style channel re-weighting)."""
+    a, x, b = xs[0], xs[1], xs[2]
+    return [a * x + b]
+
+
+@register("power")
+def power(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """(shift + scale * x) ** power."""
+    p = float(node.attr("power", 1.0))
+    y = float(node.attr("shift", 0.0)) + float(node.attr("scale", 1.0)) * xs[0]
+    if p != 1.0:
+        y = torch.pow(y, p)
+    return [y]
+
+
+@register("exp")
+def exp_op(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [torch.exp(xs[0])]
+
+
+@register("log")
+def log_op(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [torch.log(xs[0])]
+
+
+@register("erf")
+def erf_op(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The Gauss error function (ONNX GELU decompositions)."""
+    return [torch.erf(xs[0])]
+
+
+@register("cos_sim")
+def cos_sim(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Cosine similarity along the last axis, in float32: a . b /
+    (sqrt(|a|^2 |b|^2) + 1e-12), in the first input's dtype."""
+    a, b = xs[0].to(torch.float32), xs[1].to(torch.float32)
+    num = torch.sum(a * b, dim=-1)
+    den = torch.sqrt(torch.sum(a * a, dim=-1) * torch.sum(b * b, dim=-1)) + 1e-12
+    return [(num / den).to(xs[0].dtype)]
+
+
+@register("dot")
+def dot_op(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Row-wise dot product along the last axis, kept as a size-1 axis."""
+    return [torch.sum(xs[0] * xs[1], dim=-1, keepdim=True)]
+
+
+@register("maxout")
+def maxout(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Channel maxout: the max over each run of `groups` adjacent channels
+    of NHWC x."""
+    x = xs[0]
+    groups = int(node.attr("groups", 2))
+    n, h, w_, c = x.shape
+    return [torch.amax(x.reshape(n, h, w_, c // groups, groups), dim=-1)]

@@ -17,8 +17,9 @@ through the fused bottleneck_int8, the decode scheduler serving requests
 on the LLM weights through CUDA graphs, speculative decoding on the LLM
 weights, the autotuned long-context prefill, VGG16, GoogLeNet and
 ShuffleNet v1 at 224 px, the SSD300-VGG16, YOLOv3-tiny and Faster R-CNN
-detectors at b1 and full width, and the FCN-8s lite and ICNet lite
-segmentation nets.  4-5 minutes as a
+detectors at b1 and full width, the FCN-8s lite and ICNet lite
+segmentation nets, and the three RNN nets (the LSTM language model, the
+BiLSTM text classifier, the BiGRU-CRF tagger).  6-7 minutes as a
 command on an H100, of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
@@ -148,7 +149,10 @@ Phases:
               printed and in the JSON), its plain version and the unfused
               chain matmul_int8 -> conv3x3_int8 -> matmul_int8 on the same
               block (PyTorch has no int8 convolution on CUDA: no library
-              call);
+              call); then two blocks narrower than the kernel's multiples
+              of 64 channels (C 32 / P 8, C 96 / P 40), which the wrapper
+              widens with zero channels: bit-equal to the plain version on
+              prepared and on raw weights, one launch a call, untimed;
  15. scheduler the port's `DecodeScheduler` on the LLM weights: b8, bf16,
               int8 KV cache, `weight_only="w4"`, bucket admission, cache
               views off, one scheduler; 12 greedy requests (prompts of 40,
@@ -224,18 +228,42 @@ Phases:
               16 proposals), int8, node by node on the CPU's inputs (int8
               kernel outputs equal, detection slabs and proposals valid on
               the same rows within DET_SLAB_RTOL), then the whole net from
-              the image (reported);
+              the image (the same valid slab rows, images and labels, the
+              values within DET_SLAB_RTOL), node by node on each device's
+              own values: the first node that parts and the first whose
+              float output parts beyond 8e-3 of its largest value, and the
+              net again from just after the first, every edge made before
+              it shared from the CPU (reported);
  20. segmentation FCN-8s lite and ICNet lite at their defaults (b1, 64 px),
               float32 and bf16 nets on the card (no int8 kernel: they have
               no int8 route), ms/step; card against CPU: float32 logits
               within SEG_LOGIT_TOL and label maps equal where decided; bf16
               node by node on the CPU's inputs.
+ 21. rnn      46 op entries (the sequence ops, the tensor and nn ops that
+              no earlier phase runs) once each on the card against the CPU at
+              small shapes, forced ties, out-of-range gather and one_hot
+              indices and overlapping unpool windows included; then
+              `calibrate(method="max")` on the card and the LSTM language
+              model (the JAX suite's `lstm_lm_bf16_b8xT64`: b8 x T64, vocab
+              10,000, E 256, H 512, 2 layers), the text classifier (b4 x
+              T64) and the NER tagger (b4 x T48), each a bf16 net with float
+              and with int8 weights: one forward with the counts set to 0
+              just before and read just after (matmul_int8 once in an int8
+              net, the projection; nothing in a float net), the output
+              checked, ms/step eager and captured by `Net.compile` (outputs
+              equal), tokens/s, and for the LM a profiled eager and captured
+              step (busy share, kernel launches a step); every distinct int8
+              kernel shape bit-equal to its plain version; card against CPU
+              at full width, b2 x T16: the float32 nets edge by edge within
+              RNN_F32_TOL, captured equal to eager, the int8 nets node by
+              node on the CPU's inputs (dense_int8 outputs and the tags
+              equal), the int8 nets whole (reported).
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`; each entry of the kernels
 line also has `launches_by_path`, its launches in each int8 detector's
-forward.  `--kernels-only` runs phases 1, 7 and 13 and phases 18 and 19's
-kernel checks alone (no main path, so neither of
+and RNN net's forward.  `--kernels-only` runs phases 1, 7 and 13 and
+phases 18, 19 and 21's kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
@@ -1906,6 +1934,13 @@ BN_EXTRA = [
     dict(N=4, H=9, W=60, C=192, P=64, bias=True, out="int8"),
 ]
 _OUT_BYTES = {"int8": 1, "float32": 4, "bfloat16": 2}
+# blocks narrower than the kernel's multiples of 64 channels, which the
+# wrapper widens with zero channels (C 32 / P 8: Faster R-CNN's first stage
+# at base_width 8; C 96 / P 40: neither a multiple of 64)
+BN_NARROW = [
+    dict(N=2, H=56, W=56, C=32, P=8, bias=True, out="int8"),
+    dict(N=2, H=28, W=28, C=96, P=40, bias=False, out="float32"),
+]
 
 
 def _bn_bound(cfg):
@@ -1999,6 +2034,47 @@ def check_bottleneck(cfg, gen):
                 share_of_bound=bms / ms)
 
 
+def check_narrow_bottleneck(cfg, gen):
+    """A block narrower than the kernel's multiples of 64 channels (the
+    wrapper pads it with zero channels and slices the output) on prepared
+    and on raw weights, against its plain version: bit-equal, untimed; one
+    launch a call."""
+    from anakin_tpu_torch.kernels import bottleneck_int8, bottleneck_int8_plain
+    from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
+
+    n, h, w, c, p = (cfg[k] for k in ("N", "H", "W", "C", "P"))
+
+    def ints(lim, *shape):
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    x = ints(80, n, h, w, c)
+    wa, wb, wc = ints(60, c, p), ints(20, 3, 3, p, p), ints(60, p, c)
+    scales = [torch.rand(k, generator=gen, device="cuda") * 2e-4 + 1e-4
+              for k in (p, p, c)]
+    biases = [torch.randn(k, generator=gen, device="cuda") * 0.1
+              if cfg["bias"] else None for k in (p, p, c)]
+    kw = dict(in_scale=2e-2, a_scale=1.5e-2, b_scale=1.2e-2, res_scale=2e-2)
+    if cfg["out"] == "int8":
+        kw["out_scale"] = 2.5e-2
+    else:
+        kw["out_dtype"] = getattr(torch, cfg["out"])
+    raw = (wa, scales[0], wb, scales[1], wc, scales[2], *biases)
+    prepared = (prepare_b(wa), scales[0], prepare_b(wb), scales[1],
+                prepare_b(wc), scales[2], *biases)
+    launches = bottleneck_int8.launches
+    got = bottleneck_int8(x, *prepared, **kw)
+    got_raw = bottleneck_int8(x, *raw, **kw)
+    want = bottleneck_int8_plain(x, *raw, **kw)
+    torch.cuda.synchronize()
+    n_launches = bottleneck_int8.launches - launches
+    bottleneck_int8.launches = launches
+    equal = torch.equal(got, want) and torch.equal(got_raw, want)
+    err = float((got.float() - want.float()).abs().max())
+    return dict(kernel="bottleneck_int8", **cfg, ok=equal and n_launches == 2,
+                max_abs_err=err, launches=n_launches)
+
+
 def bottleneck_phase(report, card, resnet):
     """Phase 14: the 12 identity blocks of phase 2's ResNet-50 b128 net
     through bottleneck_int8, then the kernel against its plain version."""
@@ -2075,6 +2151,19 @@ def bottleneck_phase(report, card, resnet):
             f"plain={r['plain_ms']:.3f} bound={r['bound_ms']:.4f} "
             f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of it) "
             f"lib=none")
+    narrow = []
+    for cfg in BN_NARROW:
+        r = check_narrow_bottleneck(cfg, gen)
+        narrow.append(r)
+        log(f"[kernel] bottleneck_int8 narrow {r['N']}x{r['H']}x{r['W']}x"
+            f"{r['C']} P{r['P']} bias={int(r['bias'])} out={r['out']} "
+            f"(padded to multiples of 64 by the wrapper): err="
+            f"{r['max_abs_err']:g}, {r['launches']} launches for 2 calls, "
+            f"untimed")
+    report["bottleneck_narrow"] = narrow
+    if not all(r["ok"] for r in narrow):
+        raise AssertionError(f"a narrow block differs from its plain version: "
+                             f"{narrow}")
     path = [r for r in results if r["calls_per_run"]]
 
     def total(key):
@@ -3068,19 +3157,21 @@ def det_path(name, precision, scales, report, card):
     return calls
 
 
-def det_node_by_node(gq, taps, what):
-    """Each node of `gq` on the card, fed the CPU net's values of its
-    inputs, against the CPU net's values of its outputs: int8 outputs of
-    the int8 kernels equal, other int8 outputs within 1 LSB, detection
-    slabs and proposals valid on the same rows within DET_SLAB_RTOL of
-    their largest value, float outputs within 8e-3 of their largest (bf16
-    rounding after sums in other orders).  Returns the largest of each."""
+def int8_node_by_node(gq, taps, what):
+    """Each node of the bf16 int8 net `gq` on the card, fed the CPU net's
+    values of its inputs, against the CPU net's values of its outputs: the
+    int8 kernels' outputs (conv2d_int8, dense_int8; int8 or float) and
+    integer outputs (labels, tags) equal, other int8 outputs within 1 LSB,
+    detection slabs and proposals valid on the same rows within
+    DET_SLAB_RTOL of their largest value, float outputs within 8e-3 of
+    their largest (bf16 rounding after sums in other orders).  Returns the
+    largest of each."""
     import anakin_tpu_torch as ak
     from anakin_tpu_torch.graph.ir import topological_order
     from anakin_tpu_torch.runtime.net import build_forward
 
     net = ak.Net(gq, "bf16")
-    worst = dict(kernel_lsb=0, other_lsb=0, slab_rel=0.0, float_rel=0.0)
+    worst = dict(other_lsb=0, slab_rel=0.0, float_rel=0.0)
     for node in topological_order(gq):
         fwd, _ = build_forward(gq, "bf16", start_from=node.name,
                                stop_at=node.name)
@@ -3094,39 +3185,116 @@ def det_node_by_node(gq, taps, what):
                                      f"{tuple(a.shape)} vs {b.dtype} "
                                      f"{tuple(b.shape)}")
             if node.op in DET_SLAB_OPS + DET_PROPOSAL_OPS:
-                va, ra = det_slab_rows(a)
-                vb, rb = det_slab_rows(b)
-                if not torch.equal(va, vb):
+                rows, _, d = det_slab_diff(a, b)
+                if not rows:
                     raise AssertionError(f"{what} {node.name}: other valid "
                                          f"rows on the card")
-                d = float((ra - rb).abs().max() / b.float().abs().max()
-                          .clamp_min(1e-30)) if len(rb) else 0.0
                 worst["slab_rel"] = max(worst["slab_rel"], d)
+            elif (node.op in ("conv2d_int8", "dense_int8")
+                  or not b.is_floating_point() and b.dtype != torch.int8):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what} {node.name} ({node.op}): "
+                                         f"{e} differs")
             elif b.dtype == torch.int8:
-                d = int((a.int() - b.int()).abs().max())
-                k = ("kernel_lsb" if node.op in ("conv2d_int8", "dense_int8")
-                     else "other_lsb")
-                worst[k] = max(worst[k], d)
-            elif b.is_floating_point():
+                worst["other_lsb"] = max(worst["other_lsb"],
+                                         int((a.int() - b.int()).abs().max()))
+            else:
                 d = float((a.float() - b.float()).abs().max()
                           / b.float().abs().max().clamp_min(1e-30))
                 worst["float_rel"] = max(worst["float_rel"], d)
-            elif not torch.equal(a, b):
-                raise AssertionError(f"{what} {node.name}: {e} differs")
-    if (worst["kernel_lsb"] or worst["other_lsb"] > 1
-            or worst["slab_rel"] > DET_SLAB_RTOL or worst["float_rel"] > 8e-3):
+    if (worst["other_lsb"] > 1 or worst["slab_rel"] > DET_SLAB_RTOL
+            or worst["float_rel"] > 8e-3):
         raise AssertionError(f"{what}: a node differs between the card and "
                              f"the CPU on the same inputs: {worst}")
     return worst
 
 
+def det_slab_diff(a, b):
+    """Slabs or proposals a (card) against b (CPU): (the same valid rows,
+    their image and label columns equal, the rows' largest difference
+    relative to b's largest value)."""
+    va, ra = det_slab_rows(a)
+    vb, rb = det_slab_rows(b)
+    if not torch.equal(va, vb):
+        return False, False, float("inf")
+    ids = 2 if a.shape[-1] == 7 else 1
+    rel = float((ra - rb).abs().max() / b.float().abs().max()
+                .clamp_min(1e-30)) if len(rb) else 0.0
+    return True, torch.equal(ra[:, :ids], rb[:, :ids]), rel
+
+
+def det_edge_diff(op, a, b):
+    """How edge a (card) parts from b (CPU): (parts at all, the measure, a
+    float output's difference relative to its largest value or None)."""
+    a = a.cpu()
+    if op in DET_SLAB_OPS + DET_PROPOSAL_OPS:
+        rows, ids, rel = det_slab_diff(a, b)
+        if not rows:
+            return True, "other rows valid", None
+        return rel > 0 or not ids, \
+            f"the same {int(det_slab_rows(b)[0].sum())} valid rows, ids " \
+            f"{'equal' if ids else 'differ'}, values max rel diff {rel:.3g}", \
+            None
+    if b.dtype == torch.int8:
+        d = (a.int() - b.int()).abs()
+        return bool(d.any()), f"{int(d.max())} LSB at {int((d > 0).sum())} " \
+            f"of {d.numel()}", None
+    if b.is_floating_point():
+        rel = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+        return rel > 0, f"max rel diff {rel:.3g}", rel
+    same = torch.equal(a, b)
+    return not same, "equal" if same else "differs", None
+
+
+def det_first_parting(nodes, taps_gpu, taps_cpu):
+    """Walk `nodes` in order, card against CPU on each run's own values:
+    the first node whose output parts at all, and the first whose float
+    output parts by more than the tolerance `int8_node_by_node` holds float
+    nodes to on shared inputs (8e-3 of the largest value): (name, op,
+    edge, measure) of each, or None."""
+    first_any = first_float = None
+    for node in nodes:
+        for e in node.outputs:
+            parts, what, rel = det_edge_diff(node.op, taps_gpu[e], taps_cpu[e])
+            if parts and first_any is None:
+                first_any = (node.name, node.op, e, what)
+            if rel is not None and rel > 8e-3 and first_float is None:
+                first_float = (node.name, node.op, e, what)
+    return first_any, first_float
+
+
+def det_from_cut(gq, order, cut, feed, taps_cpu):
+    """The card's net from node `cut` on, fed the CPU's values of every
+    edge made before the cut and read after it (the int8 edges among them
+    shared, as phase 11 shares MobileNet's stem output): whether the slabs
+    keep the CPU's rows, and the first node of the tail that parts."""
+    import anakin_tpu_torch as ak
+
+    made = {e for n in order[:cut] for e in n.outputs} | set(feed)
+    frontier = {e for n in order[cut:] for e in n.inputs if e in made}
+    tail = [e for n in order[cut:] for e in n.outputs]
+    out = ak.Net(gq, "bf16", start_from=order[cut].name,
+                 tap_edges=tail).prediction(
+        {e: taps_cpu[e] for e in frontier})
+    first_any, _ = det_first_parting(order[cut:], out, taps_cpu)
+    slabs = {e: det_edge_diff(n.op, out[e], taps_cpu[e])[1]
+             for n in order[cut:] if n.op in DET_SLAB_OPS for e in n.outputs}
+    return dict(cut_at=order[cut].name, shared_edges=len(frontier),
+                tail_first_parting=first_any, slabs=slabs)
+
+
 def det_cpu_gpu(report):
     """The three int8 detectors at b1 and their cuts (DET_CPU_CUTS), card
     against CPU: calibrated on the CPU, every node on the card fed the CPU
-    net's inputs (`det_node_by_node`); then the whole net from the image
-    on both devices, the valid rows of its slab compared (information: a
-    bf16 rounding apart in the float ops before an int8 node can move one
-    of its inputs by 1 LSB, and the detections with it)."""
+    net's inputs (`int8_node_by_node`); then the whole net from the image
+    on both devices: the same valid slab rows with the same image and
+    label, the values within DET_SLAB_RTOL of the largest; node by node on
+    each device's own values from the image, the first node that parts
+    and the first whose float output parts beyond the float nodes'
+    tolerance (reported); then the net again from just after the first
+    node that parts, every edge made before it shared from the CPU
+    (`det_from_cut`, reported)."""
     import anakin_tpu_torch as ak
     from anakin_tpu_torch.graph.ir import topological_order
     from anakin_tpu_torch.quant import calibrate, quantize_graph
@@ -3142,27 +3310,41 @@ def det_cpu_gpu(report):
         taps = ak.Net(gq, "bf16", device="cpu", tap_edges=edges).prediction(
             feed)
         taps.update({k: torch.from_numpy(v) for k, v in feed.items()})
-        worst = det_node_by_node(gq, taps, f"{name} {size}px")
-        out = ak.Net(gq, "bf16").prediction(feed)
+        worst = int8_node_by_node(gq, taps, f"{name} {size}px")
+        order = topological_order(gq)
+        out = ak.Net(gq, "bf16", tap_edges=edges).prediction(feed)
+        first_any, first_float = det_first_parting(order, out, taps)
+        from_cut = None
+        if first_any is not None:
+            cut = next(i for i, n in enumerate(order) if n.name == first_any[0])
+            if cut + 1 < len(order):
+                from_cut = det_from_cut(gq, order, cut + 1, feed, taps)
         whole = {}
         for e in gq.outputs:
             node = next(n for n in gq.nodes.values() if e in n.outputs)
             if node.op in DET_SLAB_OPS:
-                va, ra = det_slab_rows(out[e])
-                vb, rb = det_slab_rows(taps[e])
-                whole[e] = dict(valid_card=int(va.sum()),
-                                valid_cpu=int(vb.sum()),
-                                rows_equal=bool(torch.equal(va, vb)
-                                                and torch.equal(ra, rb)))
+                rows, ids, rel = det_slab_diff(out[e].cpu(), taps[e])
+                whole[e] = dict(same_rows=rows, ids_equal=ids,
+                                values_max_rel=rel)
+                if not (rows and ids and rel <= DET_SLAB_RTOL):
+                    raise AssertionError(f"{name}: from the image, the card's "
+                                         f"slab parts from the CPU's: "
+                                         f"{whole[e]}")
             else:
                 whole[e] = float((out[e].cpu().float() - taps[e].float())
                                  .abs().max() / taps[e].float().abs().max()
                                  .clamp_min(1e-30))
         res[name] = dict(size=size, cut=kw, node_by_node=worst,
-                         whole_net=whole)
+                         whole_net=whole, from_image_first_parting=first_any,
+                         from_image_first_float_beyond_tol=first_float,
+                         from_cut=from_cut)
         log(f"[cpu/gpu det] {name} int8 b1 {size}px node by node on the "
             f"CPU's inputs: {worst}; whole net from the image: {whole} "
             f"({time.perf_counter() - t0:.1f} s)")
+        log(f"[cpu/gpu det] {name} from the image, each device on its own "
+            f"values: first node that parts {first_any}; first float output "
+            f"beyond 8e-3 of its largest {first_float}; from just after the "
+            f"first, every earlier edge shared from the CPU: {from_cut}")
     report["det_cpu_gpu"] = res
 
 
@@ -3280,17 +3462,373 @@ def seg_phase(report, card):
     log(f"[time] phase 20 took {time.perf_counter() - t0:.0f} s")
 
 
+# ------------------------------------------------------------------- RNNs
+
+# the JAX suite's LSTM language model (`tools/bench_suite.py:564-567`,
+# `lstm_lm_bf16_b8xT64`: `build_lstm_lm`'s defaults, vocab 10,000, E 256,
+# H 512, 2 layers, seed 0) at b8 x T64, every length 64; the BiLSTM text
+# classifier (vocab 5,000, E 128, H 128, 2 classes) and the BiGRU-CRF
+# tagger (vocab 8,000, E 128, H 256, 9 tags) at the defaults of
+# `build_text_classifier` and `build_ner_tagger`
+RNN_NETS = {"lstm_lm": (8, 64), "text_classifier": (4, 64),
+            "ner_tagger": (4, 48)}                 # name -> (batch, T)
+RNN_VOCAB = {"lstm_lm": 10000, "text_classifier": 5000, "ner_tagger": 8000}
+# card against CPU: full widths at b2 x T16, a cut so that the CPU's int8
+# plain GEMM (int64, no BLAS) stays short; the second row of length 11
+RNN_CPU_CUT = (2, 16)
+# float32 nets card against CPU, of each edge's largest value: cuBLAS's and
+# the CPU's float32 products sum in other orders, and the recurrence
+# carries the difference through 16 steps and two layers
+RNN_F32_TOL = 1e-5
+
+
+def rnn_graph(name, batch, seq_len, scales=None):
+    """The optimized graph of `name` at (batch, seq_len), quantized with
+    `scales` if given."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch import models
+    from anakin_tpu_torch.quant import quantize_graph
+
+    g = ak.optimize(getattr(models, "build_" + name)(batch=batch,
+                                                     seq_len=seq_len))
+    return g if scales is None else quantize_graph(g, scales)
+
+
+def rnn_feed(name, batch, seq_len, rng, lengths=None):
+    """Token ids from `rng` and the lengths (all seq_len by default)."""
+    return {"input": rng.integers(0, RNN_VOCAB[name], size=(batch, seq_len))
+            .astype(np.int32),
+            "lengths": (np.full((batch,), seq_len, np.int32) if lengths is None
+                        else np.asarray(lengths, np.int32))}
+
+
+def rnn_scales(name, device=None):
+    """`calibrate(method="max")` of the phase-21 graph over two batches
+    from default_rng(0), as the suite calibrates."""
+    from anakin_tpu_torch.quant import calibrate
+
+    b, t = RNN_NETS[name]
+    rng = np.random.default_rng(0)
+    return calibrate(rnn_graph(name, b, t),
+                     [rnn_feed(name, b, t, rng) for _ in range(2)],
+                     method="max", device=device)
+
+
+def rnn_check_output(name, y, batch, seq_len, tag):
+    """The LM's softmax [B, T, vocab] and the classifier's [B, 2]: finite
+    rows summing to 1 (bf16); the tagger's tags [B, T] int32 in 0..8."""
+    if name == "ner_tagger":
+        if (y.dtype != torch.int32 or tuple(y.shape) != (batch, seq_len)
+                or y.min() < 0 or y.max() > 8):
+            raise AssertionError(f"{tag}: bad tags {y.dtype} {tuple(y.shape)}")
+        return
+    want = (batch, seq_len, RNN_VOCAB[name]) if name == "lstm_lm" else (batch, 2)
+    yf = y.float()
+    if tuple(y.shape) != want or not torch.isfinite(yf).all():
+        raise AssertionError(f"{tag}: bad output {tuple(y.shape)}")
+    if (yf.sum(-1) - 1).abs().max() > 2e-2:
+        raise AssertionError(f"{tag}: softmax rows do not sum to 1")
+
+
+def rnn_path(name, weights, scales, report, card):
+    """One RNN run of phase 21: a bf16 net with float or int8 weights; one
+    forward with the counts set to 0 just before and read just after
+    (matmul_int8 once in an int8 net, nothing else; nothing in a float
+    net), the output checked, eager ms/step, the forward captured by
+    `Net.compile` (outputs equal to eager, ms/step replayed); for the LM
+    tokens/s and a profiled eager and captured step (device busy share,
+    kernel launches a step).  Returns the int8 kernel calls of one
+    forward."""
+    import anakin_tpu_torch as ak
+
+    b, t = RNN_NETS[name]
+    t0 = time.perf_counter()
+    g = rnn_graph(name, b, t, scales if weights == "int8" else None)
+    net = ak.Net(g, precision="bf16")
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in rnn_feed(name, b, t, np.random.default_rng(1)).items()}
+    net.prediction(feed)                           # warm-up
+    torch.cuda.synchronize()
+    tag = f"{name} {weights}"
+    log(f"[rnn] {tag}: graph, weights and first forward "
+        f"{time.perf_counter() - t0:.1f} s")
+    calls = cnn_calls(g) if weights == "int8" else []
+    want = {}
+    for kernel, _ in calls:
+        want[kernel] = want.get(kernel, 0) + 1
+    reset_counts()
+    out = net.prediction(feed)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != dict(no_launches(), **want) or (
+            weights == "int8" and want != {"matmul_int8": 1}):
+        raise AssertionError(f"{tag}: expected {want} launches, got {counts}")
+    y = out[g.outputs[0]]
+    rnn_check_output(name, y, b, t, tag)
+    step_ms = cuda_ms(lambda: net.prediction(feed), iters=5, windows=3)
+    step = net.compile(feed)
+    cap = step(feed)
+    torch.cuda.synchronize()
+    if not torch.equal(cap[g.outputs[0]], y):
+        raise AssertionError(f"{tag}: the captured forward differs from the "
+                             f"eager one")
+    captured_ms = cuda_ms(lambda: step(feed), iters=10, windows=3)
+    res = dict(batch=b, seq_len=t, net_precision="bf16", weights=weights,
+               launches=counts, ms_per_step=step_ms,
+               captured_ms_per_step=captured_ms,
+               tokens_per_s=b * t / step_ms * 1e3,
+               captured_tokens_per_s=b * t / captured_ms * 1e3)
+    line = (f"[rnn] {tag} b{b} x T{t}: {step_ms:.3f} ms/step eager, "
+            f"{captured_ms:.3f} captured; {b * t / step_ms * 1e3:.0f} / "
+            f"{b * t / captured_ms * 1e3:.0f} tokens/s")
+    if name == "lstm_lm":
+        res["profile"] = profile_step(lambda: net.prediction(feed), step_ms,
+                                      f"rnn {tag} eager")
+        res["profile_captured"] = profile_step(lambda: step(feed),
+                                               captured_ms,
+                                               f"rnn {tag} captured")
+        line += (f"; device busy {100 * res['profile']['busy_share_of_step']:.1f}"
+                 f"% eager / "
+                 f"{100 * res['profile_captured']['busy_share_of_step']:.1f}% "
+                 f"captured, {res['profile']['kernel_launches']} / "
+                 f"{res['profile_captured']['kernel_launches']} kernel "
+                 f"launches a step")
+    del step, cap
+    log(line + f"; int8 kernels {want} | {card}")
+    report.setdefault("rnn", {})[f"{name}_{weights}_b{b}xT{t}"] = res
+    return calls
+
+
+def rnn_cpu_gpu(report):
+    """The three nets at full width and RNN_CPU_CUT, card against CPU: the
+    float32 net from the tokens, every float edge within RNN_F32_TOL of its
+    largest value (LSTM / GRU outputs, the projection, the softmax) and the
+    tags equal; its captured forward equal to the eager one; then the bf16
+    int8 net (CPU scales) node by node on the CPU's inputs
+    (`int8_node_by_node`), and whole from the tokens (reported)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.ir import topological_order
+    from anakin_tpu_torch.quant import calibrate, quantize_graph
+
+    b, t = RNN_CPU_CUT
+    res = {}
+    for name in RNN_NETS:
+        t0 = time.perf_counter()
+        feed = rnn_feed(name, b, t, np.random.default_rng(2),
+                        lengths=[t, t - 5])
+        g = rnn_graph(name, b, t)
+        edges = [e for n in topological_order(g) for e in n.outputs]
+        net = ak.Net(g, "fp32", tap_edges=edges)
+        gpu = net.prediction(feed)
+        cpu = ak.Net(g, "fp32", device="cpu", tap_edges=edges).prediction(feed)
+        f32 = 0.0
+        for e in edges:
+            a, c = gpu[e].cpu(), cpu[e]
+            if c.is_floating_point():
+                f32 = max(f32, float((a - c).abs().max()
+                                     / c.abs().max().clamp_min(1e-30)))
+            elif not torch.equal(a, c):
+                raise AssertionError(f"{name} fp32: {e} differs")
+        if f32 > RNN_F32_TOL:
+            raise AssertionError(f"{name} fp32: an edge differs by {f32}")
+        dev_feed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+        eager = net.prediction(dev_feed)
+        cap = net.compile(dev_feed)(dev_feed)
+        torch.cuda.synchronize()
+        if not all(torch.equal(cap[e], eager[e]) for e in g.outputs):
+            raise AssertionError(f"{name} fp32: the captured forward differs")
+        gq = quantize_graph(g, calibrate(g, [feed], method="max",
+                                         device="cpu"))
+        qedges = [e for n in topological_order(gq) for e in n.outputs]
+        taps = ak.Net(gq, "bf16", device="cpu", tap_edges=qedges).prediction(
+            feed)
+        taps.update({k: torch.from_numpy(v) for k, v in feed.items()})
+        node_rel = int8_node_by_node(gq, taps, f"{name} int8")["float_rel"]
+        whole = ak.Net(gq, "bf16").prediction(feed)[gq.outputs[0]].cpu()
+        want = taps[gq.outputs[0]]
+        whole_diff = (int((whole != want).sum()) if name == "ner_tagger" else
+                      float((whole.float() - want.float()).abs().max()))
+        res[name] = dict(fp32_edge_max_rel=f32, int8_node_float_max_rel=node_rel,
+                         int8_whole=whole_diff)
+        log(f"[cpu/gpu rnn] {name} b{b} x T{t} (lengths {t}, {t - 5}): fp32 "
+            f"edges max rel diff {f32:.3g} (tol {RNN_F32_TOL}), captured = "
+            f"eager; int8 node by node on the CPU's inputs: dense_int8 and "
+            f"tags equal, float nodes max rel diff {node_rel:.3g}; whole int8 "
+            f"net from the tokens: "
+            + (f"{whole_diff} tags differ" if name == "ner_tagger" else
+               f"softmax max abs diff {whole_diff:.3g}")
+            + f" ({time.perf_counter() - t0:.1f} s)")
+    report["rnn_cpu_gpu"] = res
+
+
+def new_op_cases():
+    """(op, inputs, attrs, tolerance) for each of 46 op entries of the
+    sequence, tensor and nn modules that no other phase runs, at small
+    shapes, with forced ties (crf, topk, pooling), out of range gather and
+    one_hot indices and overlapping unpool windows; tolerance "equal" or
+    "close" (rtol and atol 1e-5, NaN equal to NaN)."""
+    rng = np.random.default_rng(5)
+
+    def n(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    B, T, D, H = 2, 5, 3, 4
+    lens = np.array([5, 0], np.int32)
+    lstm_w = [n(D, 4 * H), n(H, 4 * H), n(4 * H)]
+    ties = np.round(n(1, 6, 6, 2))
+    ties[0, :3] = 1.0
+    emit = np.round(n(B, T, H))
+    emit[0] = 0.0
+    trans = np.round(n(H + 2, H))
+    trans[2:, 1] = trans[2:, 0]
+    topk_x = np.round(n(2, 3, 6))
+    topk_x[0, 0] = [2.0, 2.0, 2.0, 1.0, 2.0, 0.0]
+    pool = n(1, 4, 4, 2)
+    # flat indices as 3 x 3 windows at stride 1 over a 6 x 6 map give them:
+    # overlapping windows share a cell, whose values add up
+    r, c = np.array([1, 1, 2, 3]), np.array([0, 2, 2, 4])
+    pidx = np.repeat((r[:, None] * 6 + c[None, :]).astype(np.int32)[
+        None, :, :, None], 2, axis=3)
+    return [
+        ("lstm", [n(B, T, D)] + lstm_w + [lens],
+         dict(has_lengths=True, reverse=True), "close"),
+        ("lstmp", [n(B, T, D), n(D, 4 * H), n(2, 4 * H), n(H, 2), n(4 * H),
+                   lens], dict(has_lengths=True), "close"),
+        ("gru", [n(B, T, D), n(D, 3 * H), n(H, 3 * H), n(3 * H), lens],
+         dict(has_lengths=True, reverse=True), "close"),
+        ("sequence_concat", [n(B, T, D), n(B, T, H)], {}, "equal"),
+        ("seq_concat_seq_pool_soft_sign", [n(B, T, D), n(B, T, H), lens],
+         dict(has_lengths=True), "close"),
+        ("sequence_expand", [n(B, D), n(B, T, H)], {}, "equal"),
+        ("sequence_conv", [n(B, T, D), n(3 * D, H), n(H)],
+         dict(has_bias=True), "close"),
+        ("sequence_pool_concat", [n(B, T, D), n(B, T, H)], dict(mode="max"),
+         "equal"),
+        ("reverse_sequence", [n(B, T, D), lens], {}, "equal"),
+        ("crf_decoding", [emit, trans, lens], {}, "equal"),
+        ("attention_lstm", [n(B, T, D), n(D + H, 6), n(6, 1)] + lstm_w
+         + [lens], dict(has_lengths=True), "close"),
+        ("attention_padding_mask", [n(B, T, T), lens], {}, "equal"),
+        ("permute", [n(2, 3, 4, 5)], dict(order=(0, 3, 1, 2)), "equal"),
+        ("transpose", [n(2, 3, 4)], {}, "equal"),
+        ("permute_power", [np.abs(n(2, 3, 4))], dict(order=(1, 0, 2),
+                                                     power=0.5), "close"),
+        ("split", [n(2, 3)], dict(num=2), "equal"),
+        ("slice_v2", [n(2, 5, 6)], dict(axes=(1, 2), starts=(-3, 1),
+                                        ends=(4, -9)), "equal"),
+        ("pad", [n(1, 3, 4, 2)], dict(pad_h=(1, 4), pad_w=(2, 0),
+                                      pad_c=(1, 1), mode="reflect"), "equal"),
+        ("pixel_shuffle", [n(1, 2, 3, 8)], dict(upscale_factor=2), "equal"),
+        ("expand", [n(2, 3)], dict(expand_times=(2, 3)), "equal"),
+        ("gather", [n(4, 3), np.array([3, -1, 7, -5, 0], np.int32)],
+         dict(axis=0), "equal"),
+        ("cast", [n(2, 3) * 9], dict(dtype="int32"), "equal"),
+        ("one_hot", [np.array([[0, 5], [-1, 2]], np.int32)], dict(depth=4),
+         "equal"),
+        ("topk", [topk_x], dict(k=3), "equal"),
+        ("reduce", [n(2, 3, 4)], dict(mode="sum", axes=(1,)), "close"),
+        ("mean", [n(2, 3)], {}, "close"),
+        ("cumsum", [n(2, 4)], dict(axis=1, exclusive=True), "close"),
+        ("arithmetic", [n(2, 3), n(2, 3)], dict(mode="sub"), "equal"),
+        ("reverse_input", [n(3, 2), n(2, 2)], {}, "equal"),
+        ("im2sequence", [n(1, 5, 5, 2)], dict(window=(2, 3), strides=(1, 2),
+                                              padding=(1, 0)), "equal"),
+        ("coord2patch", [n(2, 4)], {}, "equal"),
+        ("pool2d_with_index", [ties], dict(window=(3, 3), strides=(2, 2),
+                                           padding=(1, 1)), "equal"),
+        ("unpool2d", [pool, pidx], dict(out_hw=(6, 6)), "close"),
+        ("spp", [n(1, 7, 5, 2)], dict(mode="avg"), "close"),
+        ("matmul", [n(2, 3, 4), n(2, 4, 5)], dict(coeff=0.5), "close"),
+        ("group_norm", [n(1, 2, 2, 4), n(4), n(4)], dict(groups=2), "close"),
+        ("mvn", [n(1, 3, 3, 2)], {}, "close"),
+        ("prelu", [n(1, 2, 2, 3), n(3)], {}, "equal"),
+        ("axpy", [n(1, 1, 1, 2), n(1, 2, 2, 2), n(1, 2, 2, 2)], {}, "close"),
+        ("power", [np.abs(n(2, 3))], dict(power=0.5, scale=2.0), "close"),
+        ("exp", [n(2, 3)], {}, "close"),
+        ("log", [np.abs(n(2, 3))], {}, "close"),
+        ("erf", [n(2, 3)], {}, "close"),
+        ("cos_sim", [n(2, 4), n(2, 4)], {}, "close"),
+        ("dot", [n(2, 4), n(2, 4)], {}, "close"),
+        ("maxout", [n(1, 2, 2, 4)], dict(groups=2), "equal"),
+    ]
+
+
+def new_ops_on_card(report):
+    """Each op entry of `new_op_cases` once on CUDA against the same op on
+    the CPU, on the same inputs: the CPU tests' tolerances; unpool2d's
+    overlapping windows add on the card in no fixed order, within the
+    float32 order of sums."""
+    from anakin_tpu_torch.graph.ir import Node
+    from anakin_tpu_torch.ops import get_op
+
+    cases = new_op_cases()
+    if len({c[0] for c in cases}) != 46:
+        raise AssertionError("the op cases do not name 46 entries")
+    worst = 0.0
+    for op, ins, attrs, tol in cases:
+        node = Node("n", op, [f"i{k}" for k in range(len(ins))],
+                    ["o0", "o1"], dict(attrs))
+        cpu = get_op(op)(node, [torch.from_numpy(a) for a in ins])
+        gpu = get_op(op)(node, [torch.from_numpy(a).cuda() for a in ins])
+        if len(cpu) != len(gpu):
+            raise AssertionError(f"{op}: {len(gpu)} outputs, {len(cpu)} on "
+                                 f"the CPU")
+        for a, b in zip(gpu, cpu):
+            a = a.cpu()
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{op}: {a.dtype} {tuple(a.shape)} vs "
+                                     f"{b.dtype} {tuple(b.shape)}")
+            if tol == "equal" or not b.is_floating_point():
+                ok = torch.equal(a, b) or (b.is_floating_point() and bool(
+                    ((a == b) | (a.isnan() & b.isnan())).all()))
+            else:
+                ok = torch.allclose(a, b, rtol=1e-5, atol=1e-5, equal_nan=True)
+                fin = torch.isfinite(b)
+                if fin.any():
+                    worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+            if not ok:
+                raise AssertionError(f"{op}: the card differs from the CPU")
+    log(f"[rnn ops] the 46 op entries on the card equal the CPU's (the "
+        f"arithmetic ones within rtol / atol 1e-5: max abs diff {worst:.3g})")
+    report["new_ops_on_card"] = dict(entries=len(cases), close_max_abs=worst)
+
+
+def rnn_phase(report, card):
+    """Phase 21: the 46 op entries on the card, calibrate the three RNN
+    nets on the card, the six runs (bf16 nets, float and int8 weights),
+    every distinct int8 kernel shape bit-equal to its plain version, then
+    card against CPU.  Returns the int8 runs' kernel calls by run."""
+    t0 = time.perf_counter()
+    new_ops_on_card(report)
+    log(f"[time] phase 21 op entries done at {time.perf_counter() - t0:.0f} s")
+    scales = {name: rnn_scales(name) for name in RNN_NETS}
+    log(f"[rnn] calibrate on the card: {time.perf_counter() - t0:.1f} s")
+    calls = {}
+    for name, (b, t) in RNN_NETS.items():
+        for weights in ("float", "int8"):
+            got = rnn_path(name, weights, scales[name], report, card)
+            if got:
+                calls[f"{name}_int8_b{b}xT{t}"] = got
+    log(f"[time] phase 21 runs done at {time.perf_counter() - t0:.0f} s")
+    cnn_kernel_checks(report, calls, key="rnn_kernel_checks", tag="rnn",
+                      exact=True)
+    rnn_cpu_gpu(report)
+    report["rnn_phase_s"] = time.perf_counter() - t0
+    log(f"[time] phase 21 took {time.perf_counter() - t0:.0f} s")
+    return calls
+
+
 def main(argv) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 7 and 13 and phases 18 and 19's kernel "
-                         "checks only: build, then flash_attention and "
-                         "matmul_w4 v1/v2 against their plain versions, and "
-                         "the int8 kernels at every distinct shape of the CNN "
-                         "and detection paths (no main path, so no result "
-                         "line)")
+                    help="phases 1, 7 and 13 and phases 18, 19 and 21's "
+                         "kernel checks only: build, then flash_attention "
+                         "and matmul_w4 v1/v2 against their plain versions, "
+                         "and the int8 kernels at every distinct shape of the "
+                         "CNN, detection and RNN paths (no main path, so no "
+                         "result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -3330,6 +3868,11 @@ def main(argv) -> int:
             name: cnn_calls(det_graph(name, size, det_scales(name, size)))
             for name, size in DET_NETS.items()}, key="det_kernel_checks",
             tag="det", exact=True)
+        cnn_kernel_checks(report, {
+            name: cnn_calls(rnn_graph(name, *RNN_NETS[name],
+                                      scales=rnn_scales(name)))
+            for name in RNN_NETS}, key="rnn_kernel_checks", tag="rnn",
+            exact=True)
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         with open(os.path.join(ROOT, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(report, f, indent=1)
@@ -3403,13 +3946,20 @@ def main(argv) -> int:
     # ------------------------------------------- 19-20. detection, segmentation
     det_calls = det_phase(report, card)
     seg_phase(report, card)
+    log(f"[time] detection and segmentation phases done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------------------------ 21. RNNs
+    rnn_calls = rnn_phase(report, card)
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)
-    for k in kernels:  # the detectors' int8 runs, each counted in its run
+    paths = dict({f"{net}_b1": calls for net, calls in det_calls.items()},
+                 **rnn_calls)
+    for k in kernels:  # the detectors' and RNNs' int8 runs, each in its run
         k["launches_by_path"] = {
-            f"{net}_b1": sum(1 for kernel, _ in calls if kernel == k["name"])
-            for net, calls in det_calls.items()}
+            path: sum(1 for kernel, _ in calls if kernel == k["name"])
+            for path, calls in paths.items()}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(report, kernels=kernels), f, indent=1)

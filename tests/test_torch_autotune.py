@@ -244,3 +244,40 @@ class _Null:
 
     def __exit__(self, *a):
         return False
+
+
+@pytest.mark.parametrize("E,H,timed", [
+    (96, 2, False),    # D 48: no dtype's kernel takes it
+    (512, 2, False),   # D 256: the bf16 kernel takes it, the float32 not
+    (256, 2, True),    # D 128: both candidates
+])
+def test_tuner_offers_flash_only_at_a_head_dim_the_kernel_takes(
+        tmp_path, monkeypatch, E, H, timed):
+    """A tuner that looks like CUDA (timer stubbed, operands made on the
+    CPU): at a head dim the float32 flash kernel refuses, dense is kept and
+    nothing is timed, so `optimize(autotune=True)` does not raise on the
+    card for such a graph; at D 128 both candidates are still timed."""
+    tuner = AutoTuner(str(tmp_path / "c.json"), device="cpu")
+    tuner.device = torch.device("cuda", 0)
+    timed_calls = []
+
+    def fake_time(thunk):
+        timed_calls.append(thunk)
+        return 1.0
+
+    real_operands = autotune._operands
+    monkeypatch.setattr(tuner, "_time_ms", fake_time)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda d=None: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(autotune, "_operands", lambda g, n, s, r, d:
+                        real_operands(g, n, s, r, torch.device("cpu")))
+    gt = autotune_graph(_attn_graph(E=E, H=H), tuner)
+    assert _attention_node(gt).attrs["impl"] == "dense"
+    if timed:
+        assert len(timed_calls) == 2
+        assert [sorted(t) for t in tuner.timings.values()] == [
+            ["dense", "flash"]]
+    else:
+        assert timed_calls == [] and tuner.timings == {}
+        assert list(tuner.cache.values()) == ["dense"]

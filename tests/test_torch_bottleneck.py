@@ -36,7 +36,8 @@ from anakin_tpu_torch.convert import graph_from_jax
 from anakin_tpu_torch.graph.ir import topological_order
 from anakin_tpu_torch.kernels import conv3x3_int8, matmul_int8
 from anakin_tpu_torch.kernels.bottleneck_int8 import (bottleneck_int8,
-                                                      identity_block)
+                                                      identity_block,
+                                                      pad_block)
 from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
 from anakin_tpu_torch.models import identity_bottlenecks
 
@@ -172,6 +173,33 @@ def test_bottleneck_prepared_on_meta_gives_shapes():
     assert y.device.type == "meta" and y.dtype == torch.int8
     assert tuple(y.shape) == (1, 5, 7, 64)
     assert bottleneck_int8.launches == launches
+
+
+@pytest.mark.parametrize("C,P,out", [(32, 8, "int8"), (32, 8, "float32"),
+                                     (96, 40, "int8")])
+def test_narrow_block_padded_equals_the_narrow_block(rng, C, P, out):
+    """A block whose C or P is not a multiple of 64 (C 32 / P 8: Faster
+    R-CNN's first stage at base_width 8) goes to the CUDA kernel widened
+    with zero channels (`pad_block`) and sliced back: that computation,
+    run here through the plain version on the prepared padded weights,
+    equals the narrow block bit for bit, which equals the Pallas kernel in
+    interpret mode."""
+    arrays = _block_inputs(rng, 6, 5, C, P, True)
+    kw_t, kw_j = _out_kw(out)
+    args = _torch(arrays)
+    narrow = bottleneck_int8(*args, **SCALES, **kw_t)
+    padded = pad_block(*args)
+    assert tuple(padded[0].shape) == (2, 6, 5, 64 * -(-C // 64))
+    assert padded[1].shape == (64 * -(-C // 64), 64 * -(-P // 64))
+    wide = bottleneck_int8(*padded, **SCALES, **kw_t)
+    assert torch.equal(wide[..., :C], narrow)
+    assert not wide[..., C:].any()    # the zero channels stay zero
+    prepared = pad_block(args[0], prepare_b(args[1]), args[2],
+                         prepare_b(args[3]), *args[4:])
+    assert all(torch.equal(a.t, b.t) for a, b in zip(prepared[1:6:2],
+                                                      padded[1:6:2]))
+    want = jax_bottleneck(*_jax(arrays), **SCALES, **kw_j, interpret=True)
+    _near_pallas(narrow, want)
 
 
 # ------------------------------------------------------------ ResNet-50

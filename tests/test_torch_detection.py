@@ -41,6 +41,7 @@ Tolerances, and why:
     forms in_scale * w_scale in bf16, the port in float32).
 """
 
+import math
 import os
 import re
 
@@ -598,6 +599,58 @@ def test_detection_ops_are_capture_safe(monkeypatch):
             again = get_op(op)(node, xs)
         for a, b in zip(first, again):
             assert torch.equal(a, b), op
+
+
+class _PythonDivisors(TorchDispatchMode):
+    """Records each division by a Python number that is not a power of two:
+    on CUDA, PyTorch computes such an x / s as x * (1 / s)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.div.Tensor, torch.ops.aten.div_.Tensor) \
+                and isinstance(args[1], (int, float)) \
+                and math.frexp(float(args[1]))[0] != 0.5:
+            self.seen.append(args[1])
+        return func(*args, **(kwargs or {}))
+
+
+def test_detection_ops_divide_as_the_cpu_does():
+    """Fault 16 (ROADMAP §3): CUDA divides a tensor by a Python number as a
+    product with its reciprocal, which parts from the quotient by one bit
+    in about a third of SSD's fc7 prior coordinates (numpy, below); SSD's
+    priors on the card were a bit off the CPU's, and its detections moved
+    with them.  The detection ops and resize divide by a 0-dim tensor on
+    their own device: no division by a Python number but a power of two
+    is left, and the priors equal the JAX op's bit for bit."""
+    cx = (np.arange(19, dtype=np.float32) + np.float32(0.5)) * np.float32(
+        300 / 19)
+    edges = np.concatenate([cx - np.float32(30), cx + np.float32(30)])
+    quotient = edges / np.float32(300)
+    product = edges * (np.float32(1) / np.float32(300))
+    assert (quotient != product).mean() > 0.1
+    rng = np.random.default_rng(17)
+    feat = rng.normal(size=(2, 5, 5, 3)).astype(np.float32)
+    rois = _rois_across_edges(rng, 2, 5, 5, 1.0)
+    cases = [("priorbox", [np.zeros((1, 19, 19, 2), np.float32)],
+              dict(img_hw=(300, 300), **PRIORBOX["ssd_fc7"])),
+             ("yolo_box", [rng.normal(size=(1, 3, 3, 18)).astype(np.float32),
+                           np.array([[96, 96]], np.int32)],
+              dict(anchors=[1, 2, 3, 4], class_num=4)),
+             ("roi_align", [feat, rois], dict(pooled_hw=(3, 3),
+                                              sampling_ratio=3)),
+             ("roi_pool", [feat, rois], dict(pooled_hw=(3, 3))),
+             ("resize", [feat], dict(out_hw=(7, 9), align_corners=True))]
+    for op, ins, attrs in cases:
+        node = Node("n", op, [f"i{k}" for k in range(len(ins))], ["out"],
+                    attrs)
+        with _PythonDivisors() as mode:
+            get_op(op)(node, [torch.from_numpy(a) for a in ins])
+        assert mode.seen == [], (op, mode.seen)
+    ((got, want),) = run_both("priorbox", cases[0][1], **cases[0][2])
+    np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------- nets
