@@ -30,18 +30,19 @@ counted in `bottleneck_int8.launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .conv_int8 import conv3x3_int8_plain
-from .matmul_int8 import (_OUT_KINDS, PreparedB, as_prepared,
-                          matmul_int8_plain, prepare_b, scale_row)
+from .matmul_int8 import (_OUT_KINDS, PreparedB, as_prepared, join_prepared,
+                          matmul_int8_plain, opt_float, prepare_b, scale_row,
+                          split_prepared)
 
-__all__ = ["bottleneck_int8", "bottleneck_int8_plain", "identity_block",
-           "pad_block"]
+__all__ = ["bottleneck_int8", "bottleneck_int8_plain", "bottleneck_int8_op",
+           "identity_block", "pad_block"]
 
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: the shapes were refused
 _WIDTH = 64  # the CUDA kernel takes C and P that are multiples of this
@@ -166,19 +167,43 @@ def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
                     out_dtype=torch.float32) -> torch.Tensor:
     """The fused identity bottleneck; returns [N, H, W, C] int8 when
     `out_scale` is given, else `out_dtype`.  wa, wb and wc may be raw or
-    prepared (`prepare_b`)."""
+    prepared (`prepare_b`).  Launches directly when eager; goes through the
+    registered op `bottleneck_int8_op` while a trace runs, as
+    `matmul_int8` does."""
     _check(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, out_scale, out_dtype)
     kw = dict(in_scale=in_scale, a_scale=a_scale, b_scale=b_scale,
               res_scale=res_scale, out_scale=out_scale, out_dtype=out_dtype)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        (ta, sa), (tb, sb), (tc, sc) = map(split_prepared, (wa, wb, wc))
+        return bottleneck_int8_op(x, ta, sa, wsa, tb, sb, wsb, tc, sc, wsc,
+                                  ba, bb, bc, float(in_scale), float(a_scale),
+                                  float(b_scale), float(res_scale),
+                                  opt_float(out_scale), out_dtype)
+    return _bottleneck_int8(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, **kw)
+
+
+def bottleneck_plain(x, wa, wsa, wb, wsb, wc, wsc, ba=None, bb=None, bc=None,
+                     **kw) -> torch.Tensor:
+    """`bottleneck_int8_plain` on weights raw or prepared."""
+    C, P = _kn(wa)
+    return bottleneck_int8_plain(
+        x, _raw(wa, (C, P)), wsa, _raw(wb, (3, 3, P, P)), wsb,
+        _raw(wc, (P, C)), wsc, ba, bb, bc, **kw)
+
+
+def _bottleneck_int8(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, *, in_scale,
+                     a_scale, b_scale, res_scale, out_scale, out_dtype):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
+    kw = dict(in_scale=in_scale, a_scale=a_scale, b_scale=b_scale,
+              res_scale=res_scale, out_scale=out_scale, out_dtype=out_dtype)
+    if _build.runs_plain(x.device, "bottleneck_int8"):
+        return bottleneck_plain(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc, **kw)
     N, H, W, C = x.shape
     P = _kn(wa)[1]
-    if _build.runs_plain(x.device, "bottleneck_int8"):
-        return bottleneck_int8_plain(
-            x, _raw(wa, (C, P)), wsa, _raw(wb, (3, 3, P, P)), wsb,
-            _raw(wc, (P, C)), wsc, ba, bb, bc, **kw)
     if C % _WIDTH or P % _WIDTH:
         padded = pad_block(x, wa, wsa, wb, wsb, wc, wsc, ba, bb, bc)
-        return bottleneck_int8(*padded, **kw)[..., :C].contiguous()
+        return _bottleneck_int8(*padded, **kw)[..., :C].contiguous()
     # [N][K] with K contiguous (K = C, 9 P, P: multiples of 16, so no pad)
     wa_, wb_, wc_ = (as_prepared(w).t for w in (wa, wb, wc))
     lib = _lib()
@@ -213,6 +238,35 @@ def bottleneck_int8(x: torch.Tensor, wa: Weight, wsa: torch.Tensor,
 
 
 bottleneck_int8.launches = 0
+
+
+@torch.library.custom_op("anakin_tpu_torch::bottleneck_int8", mutates_args=())
+def bottleneck_int8_op(x: torch.Tensor, wa: torch.Tensor,
+                       wa_shape: Optional[List[int]], wsa: torch.Tensor,
+                       wb: torch.Tensor, wb_shape: Optional[List[int]],
+                       wsb: torch.Tensor, wc: torch.Tensor,
+                       wc_shape: Optional[List[int]], wsc: torch.Tensor,
+                       ba: Optional[torch.Tensor], bb: Optional[torch.Tensor],
+                       bc: Optional[torch.Tensor], in_scale: float,
+                       a_scale: float, b_scale: float, res_scale: float,
+                       out_scale: Optional[float],
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel as a registered op (see `matmul_int8_op`)."""
+    return _bottleneck_int8(
+        x, join_prepared(wa, wa_shape), wsa, join_prepared(wb, wb_shape), wsb,
+        join_prepared(wc, wc_shape), wsc, ba, bb, bc, in_scale=in_scale,
+        a_scale=a_scale, b_scale=b_scale, res_scale=res_scale,
+        out_scale=out_scale, out_dtype=out_dtype)
+
+
+@bottleneck_int8_op.register_fake
+def _(x, wa, wa_shape, wsa, wb, wb_shape, wsb, wc, wc_shape, wsc, ba, bb, bc,
+      in_scale, a_scale, b_scale, res_scale, out_scale, out_dtype):
+    return bottleneck_plain(
+        x, join_prepared(wa, wa_shape), wsa, join_prepared(wb, wb_shape), wsb,
+        join_prepared(wc, wc_shape), wsc, ba, bb, bc, in_scale=in_scale,
+        a_scale=a_scale, b_scale=b_scale, res_scale=res_scale,
+        out_scale=out_scale, out_dtype=out_dtype)
 
 
 def identity_block(block, params, x: torch.Tensor,

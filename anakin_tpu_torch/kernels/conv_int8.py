@@ -20,7 +20,7 @@ HWIO weight itself, which the CUDA path then prepares for that one call.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from . import _build
 from .matmul_int8 import (_EPILOGUE_ARGTYPES, _TAIL_ARGTYPES, PreparedB,
                           _int_matmul, as_prepared, check_epilogue,
-                          epilogue_launch_args, epilogue_plain, scale_row)
+                          epilogue_launch_args, epilogue_plain, join_prepared,
+                          opt_float, scale_row, split_prepared)
 
-__all__ = ["conv3x3_int8", "conv3x3_int8_plain"]
+__all__ = ["conv3x3_int8", "conv3x3_int8_plain", "conv3x3_int8_op"]
 
 _CONV_ACTS = (None, "identity", "relu", "relu6", "leaky_relu")
 
@@ -78,7 +79,9 @@ def conv3x3_int8(x: torch.Tensor, w: Union[torch.Tensor, PreparedB],
                  out_dtype=torch.float32,
                  residual_scale: Optional[float] = None) -> torch.Tensor:
     """Fused int8 3x3 s1 p1 conv.  Returns [N, H, W, O] int8 when
-    `out_scale` is given, else `out_dtype`."""
+    `out_scale` is given, else `out_dtype`.  Launches directly when eager;
+    goes through the registered op `conv3x3_int8_op` while a trace runs,
+    as `matmul_int8` does."""
     wt = w.t if isinstance(w, PreparedB) else w
     if x.dtype != torch.int8 or wt.dtype != torch.int8:
         raise TypeError(f"conv3x3_int8 takes int8 operands, got {x.dtype}, {wt.dtype}")
@@ -96,11 +99,29 @@ def conv3x3_int8(x: torch.Tensor, w: Union[torch.Tensor, PreparedB],
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
               out_scale=out_scale, out_dtype=out_dtype,
               residual_scale=residual_scale)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        t, wshape = split_prepared(w)
+        return conv3x3_int8_op(x, t, wshape, w_scale, bias, residual,
+                               float(in_scale), activation, float(act_alpha),
+                               opt_float(out_scale), out_dtype,
+                               opt_float(residual_scale))
+    return _conv3x3_int8(x, w, w_scale, bias, residual, **kw)
+
+
+def _conv3x3_int8(x, w, w_scale, bias, residual, *, in_scale, activation,
+                  act_alpha, out_scale, out_dtype, residual_scale):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
+    kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
+              out_scale=out_scale, out_dtype=out_dtype,
+              residual_scale=residual_scale)
     if _build.runs_plain(x.device, "conv3x3_int8"):
         return conv3x3_int8_plain(x, w, w_scale, bias, residual, **kw)
     if not x.is_contiguous():
         raise ValueError("conv3x3_int8 operands must be contiguous")
     w = as_prepared(w)
+    N, H, W, C = x.shape
+    O = w.n
     lib = _lib()
     with torch.cuda.device(x.device):
         out, args, tail, _keep = epilogue_launch_args(
@@ -118,3 +139,28 @@ def conv3x3_int8(x: torch.Tensor, w: Union[torch.Tensor, PreparedB],
 
 
 conv3x3_int8.launches = 0
+
+
+@torch.library.custom_op("anakin_tpu_torch::conv3x3_int8", mutates_args=())
+def conv3x3_int8_op(x: torch.Tensor, w: torch.Tensor,
+                    w_shape: Optional[List[int]], w_scale: torch.Tensor,
+                    bias: Optional[torch.Tensor],
+                    residual: Optional[torch.Tensor], in_scale: float,
+                    activation: Optional[str], act_alpha: float,
+                    out_scale: Optional[float], out_dtype: torch.dtype,
+                    residual_scale: Optional[float]) -> torch.Tensor:
+    """The kernel as a registered op (see `matmul_int8_op`)."""
+    return _conv3x3_int8(x, join_prepared(w, w_shape), w_scale, bias,
+                         residual, in_scale=in_scale, activation=activation,
+                         act_alpha=act_alpha, out_scale=out_scale,
+                         out_dtype=out_dtype, residual_scale=residual_scale)
+
+
+@conv3x3_int8_op.register_fake
+def _(x, w, w_shape, w_scale, bias, residual, in_scale, activation,
+      act_alpha, out_scale, out_dtype, residual_scale):
+    return conv3x3_int8_plain(x, join_prepared(w, w_shape), w_scale, bias,
+                              residual, in_scale=in_scale,
+                              activation=activation, act_alpha=act_alpha,
+                              out_scale=out_scale, out_dtype=out_dtype,
+                              residual_scale=residual_scale)

@@ -32,9 +32,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .matmul_int8 import (_TAIL_ARGTYPES, check_epilogue, epilogue_launch_args,
-                          epilogue_plain, scale_row)
+                          epilogue_plain, opt_float, scale_row)
 
-__all__ = ["depthwise3x3_int8", "depthwise3x3_int8_plain"]
+__all__ = ["depthwise3x3_int8", "depthwise3x3_int8_plain",
+           "depthwise3x3_int8_op"]
 
 _DW_ACTS = (None, "identity", "relu", "relu6", "leaky_relu")
 
@@ -78,7 +79,9 @@ def depthwise3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                       act_alpha: float = 0.0, out_scale: Optional[float] = None,
                       out_dtype=torch.float32) -> torch.Tensor:
     """Fused int8 depthwise 3x3 conv.  Returns [N, Ho, Wo, C] int8 when
-    `out_scale` is given, else `out_dtype`."""
+    `out_scale` is given, else `out_dtype`.  Launches directly when eager;
+    goes through the registered op `depthwise3x3_int8_op` while a trace
+    runs, as `matmul_int8` does."""
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"depthwise3x3_int8 takes int8 operands, got "
                         f"{x.dtype}, {w.dtype}")
@@ -97,8 +100,24 @@ def depthwise3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                    activation, out_scale, out_dtype)
     kw = dict(stride=stride, in_scale=in_scale, activation=activation,
               act_alpha=act_alpha, out_scale=out_scale, out_dtype=out_dtype)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        return depthwise3x3_int8_op(x, w, w_scale, bias, int(stride),
+                                    float(in_scale), activation,
+                                    float(act_alpha), opt_float(out_scale),
+                                    out_dtype)
+    return _depthwise3x3_int8(x, w, w_scale, bias, **kw)
+
+
+def _depthwise3x3_int8(x, w, w_scale, bias, *, stride, in_scale, activation,
+                       act_alpha, out_scale, out_dtype):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
+    kw = dict(stride=stride, in_scale=in_scale, activation=activation,
+              act_alpha=act_alpha, out_scale=out_scale, out_dtype=out_dtype)
     if _build.runs_plain(x.device, "depthwise3x3_int8"):
         return depthwise3x3_int8_plain(x, w, w_scale, bias, **kw)
+    N, H, W, C = x.shape
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("depthwise3x3_int8 operands must be contiguous")
     lib = _lib()
@@ -121,3 +140,27 @@ def depthwise3x3_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
 
 depthwise3x3_int8.launches = 0
+
+
+@torch.library.custom_op("anakin_tpu_torch::depthwise3x3_int8",
+                         mutates_args=())
+def depthwise3x3_int8_op(x: torch.Tensor, w: torch.Tensor,
+                         w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                         stride: int, in_scale: float,
+                         activation: Optional[str], act_alpha: float,
+                         out_scale: Optional[float],
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel as a registered op (see `matmul_int8_op`)."""
+    return _depthwise3x3_int8(x, w, w_scale, bias, stride=stride,
+                              in_scale=in_scale, activation=activation,
+                              act_alpha=act_alpha, out_scale=out_scale,
+                              out_dtype=out_dtype)
+
+
+@depthwise3x3_int8_op.register_fake
+def _(x, w, w_scale, bias, stride, in_scale, activation, act_alpha,
+      out_scale, out_dtype):
+    return depthwise3x3_int8_plain(x, w, w_scale, bias, stride=stride,
+                                   in_scale=in_scale, activation=activation,
+                                   act_alpha=act_alpha, out_scale=out_scale,
+                                   out_dtype=out_dtype)

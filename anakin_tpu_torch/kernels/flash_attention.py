@@ -28,8 +28,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "mha_reference", "MASK_VALUE", "head_dims",
-           "takes_head_dim"]
+__all__ = ["flash_attention", "flash_attention_op", "mha_reference",
+           "MASK_VALUE", "head_dims", "takes_head_dim"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # head dims the CUDA kernel is instantiated for; the float32 kernel keeps a
@@ -118,14 +118,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q [B, H, Sq, D] over k, v [B, Hkv, Sk, D]; returns
-    [B, H, Sq, D] in q's dtype."""
+    [B, H, Sq, D] in q's dtype.  Launches directly when eager; goes through
+    the registered op `flash_attention_op` while a trace runs, as
+    `matmul_int8` does."""
     _check(q, k, v, q_segment_ids, kv_segment_ids)
     B, H, Sq, D = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        return flash_attention_op(q, k, v, q_segment_ids, kv_segment_ids,
+                                  bool(causal), float(sm_scale))
+    return _flash_attention(q, k, v, q_segment_ids, kv_segment_ids,
+                            causal=causal, sm_scale=sm_scale)
+
+
+def _flash_attention(q, k, v, q_segment_ids, kv_segment_ids, *, causal,
+                     sm_scale):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
     if _build.runs_plain(q.device, "flash_attention"):
         return mha_reference(q, k, v, q_segment_ids, kv_segment_ids,
                              causal=causal, sm_scale=sm_scale)
+    B, H, Sq, D = q.shape
     if not takes_head_dim(D, q.dtype):
         raise ValueError(f"the CUDA flash_attention takes head dims "
                          f"{head_dims(q.dtype)} for {q.dtype}, got {D}")
@@ -149,3 +163,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+@torch.library.custom_op("anakin_tpu_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_segment_ids: Optional[torch.Tensor],
+                       kv_segment_ids: Optional[torch.Tensor], causal: bool,
+                       sm_scale: float) -> torch.Tensor:
+    """The kernel as a registered op (see `matmul_int8_op`)."""
+    return _flash_attention(q, k, v, q_segment_ids, kv_segment_ids,
+                            causal=causal, sm_scale=sm_scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
+    return mha_reference(q, k, v, q_segment_ids, kv_segment_ids,
+                         causal=causal, sm_scale=sm_scale)

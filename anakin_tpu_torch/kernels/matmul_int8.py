@@ -33,15 +33,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["matmul_int8", "matmul_int8_plain", "epilogue_plain", "PreparedB",
-           "prepare_b"]
+__all__ = ["matmul_int8", "matmul_int8_plain", "matmul_int8_op",
+           "epilogue_plain", "PreparedB", "prepare_b"]
 
 _ACTS = {None: 0, "identity": 0, "relu": 1, "relu6": 2, "leaky_relu": 3,
          "sigmoid": 4, "tanh": 5}
@@ -250,7 +250,13 @@ def matmul_int8(a: torch.Tensor, b: Union[torch.Tensor, PreparedB],
     """Fused int8 GEMM: a [M, K] int8, b [K, N] int8 (or `prepare_b` of
     it), w_scale [N], bias [N], residual [M, N] (float, or int8 with
     `residual_scale`).  Returns [M, N] int8 when `out_scale` is given, else
-    `out_dtype`."""
+    `out_dtype`.
+
+    An eager call launches the kernel directly; while `torch.export` (or
+    `torch.compile`) traces, the call goes through the registered op
+    `matmul_int8_op`, which a trace can record, and the launch happens when
+    the program runs.  Eager calls skip the op so that a host-bound step
+    pays no custom-op dispatch (measured in `chip_smoke.py` phase 22)."""
     bt = b.t if isinstance(b, PreparedB) else b
     if a.dtype != torch.int8 or bt.dtype != torch.int8:
         raise TypeError(f"matmul_int8 takes int8 operands, got {a.dtype}, {bt.dtype}")
@@ -266,11 +272,29 @@ def matmul_int8(a: torch.Tensor, b: Union[torch.Tensor, PreparedB],
     kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
               out_scale=out_scale, out_dtype=out_dtype,
               residual_scale=residual_scale)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        t, shape = split_prepared(b)
+        return matmul_int8_op(a, t, shape, w_scale, bias, residual,
+                              float(in_scale), activation, float(act_alpha),
+                              opt_float(out_scale), out_dtype,
+                              opt_float(residual_scale))
+    return _matmul_int8(a, b, w_scale, bias, residual, **kw)
+
+
+def _matmul_int8(a, b, w_scale, bias, residual, *, in_scale, activation,
+                 act_alpha, out_scale, out_dtype, residual_scale):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
+    kw = dict(in_scale=in_scale, activation=activation, act_alpha=act_alpha,
+              out_scale=out_scale, out_dtype=out_dtype,
+              residual_scale=residual_scale)
     if _build.runs_plain(a.device, "matmul_int8"):
         return matmul_int8_plain(a, b, w_scale, bias, residual, **kw)
     if not a.is_contiguous():
         raise ValueError("matmul_int8 operands must be contiguous")
     b = as_prepared(b)
+    M, K = a.shape
+    N = b.n
     lib = _lib()
     with torch.cuda.device(a.device):
         out, args, tail, _keep = epilogue_launch_args(
@@ -288,3 +312,57 @@ def matmul_int8(a: torch.Tensor, b: Union[torch.Tensor, PreparedB],
 
 
 matmul_int8.launches = 0
+
+
+# The kernel entries as registered PyTorch operators (`torch.ops.
+# anakin_tpu_torch.*`), which a `torch.export` trace can record where it
+# cannot go through a ctypes launch.  An op's implementation is its
+# wrapper's run on checked operands (on a CUDA tensor the launch, counted
+# and raising when the build or the launch fails); its fake is the plain
+# version, which computes shapes and dtypes on fake and meta tensors.  A
+# prepared weight crosses the op boundary as its [N, ldb] tensor and the
+# weight's shape.
+
+def split_prepared(w: Union[torch.Tensor, PreparedB]
+                   ) -> Tuple[torch.Tensor, Optional[List[int]]]:
+    """A weight as an op takes it: (tensor, the weight's shape when the
+    tensor is its prepared [N, ldb] copy, else None)."""
+    if isinstance(w, PreparedB):
+        w.check()
+        return w.t, list(w.shape)
+    return w, None
+
+
+def join_prepared(t: torch.Tensor, shape: Optional[List[int]]):
+    """`split_prepared` undone inside an op."""
+    return t if shape is None else PreparedB(t, tuple(shape), t, None)
+
+
+def opt_float(v) -> Optional[float]:
+    return None if v is None else float(v)
+
+
+@torch.library.custom_op("anakin_tpu_torch::matmul_int8", mutates_args=())
+def matmul_int8_op(a: torch.Tensor, b: torch.Tensor,
+                   b_shape: Optional[List[int]], w_scale: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   residual: Optional[torch.Tensor], in_scale: float,
+                   activation: Optional[str], act_alpha: float,
+                   out_scale: Optional[float], out_dtype: torch.dtype,
+                   residual_scale: Optional[float]) -> torch.Tensor:
+    """`matmul_int8` as a registered op: `b` is the weight or, with
+    `b_shape`, its prepared copy."""
+    return _matmul_int8(a, join_prepared(b, b_shape), w_scale, bias, residual,
+                        in_scale=in_scale, activation=activation,
+                        act_alpha=act_alpha, out_scale=out_scale,
+                        out_dtype=out_dtype, residual_scale=residual_scale)
+
+
+@matmul_int8_op.register_fake
+def _(a, b, b_shape, w_scale, bias, residual, in_scale, activation,
+      act_alpha, out_scale, out_dtype, residual_scale):
+    return matmul_int8_plain(a, join_prepared(b, b_shape), w_scale, bias,
+                             residual, in_scale=in_scale,
+                             activation=activation, act_alpha=act_alpha,
+                             out_scale=out_scale, out_dtype=out_dtype,
+                             residual_scale=residual_scale)

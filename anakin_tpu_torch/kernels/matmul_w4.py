@@ -36,7 +36,8 @@ import torch
 
 from . import _build
 
-__all__ = ["matmul_w4", "matmul_w4_plain", "unpack_w4", "unpack_w4_v2"]
+__all__ = ["matmul_w4", "matmul_w4_plain", "matmul_w4_op", "unpack_w4",
+           "unpack_w4_v2"]
 
 VARIANTS = ("v1", "v2")
 
@@ -117,8 +118,18 @@ def _lib() -> ctypes.CDLL:
 def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
               group: int, variant: str = "v1") -> torch.Tensor:
     """x [M, K] @ dequant(packed [K/2, N], scales [K/G, N]) -> [M, N]
-    float32, with the dequant of `variant` ("v1" or "v2")."""
+    float32, with the dequant of `variant` ("v1" or "v2").  Launches
+    directly when eager; goes through the registered op `matmul_w4_op`
+    while a trace runs, as `matmul_int8` does."""
     _check(x, packed, scales, group, variant)
+    if torch.compiler.is_compiling():  # a trace records the registered op
+        return matmul_w4_op(x, packed, scales, int(group), variant)
+    return _matmul_w4(x, packed, scales, group=group, variant=variant)
+
+
+def _matmul_w4(x, packed, scales, *, group, variant):
+    """The wrapper's run on checked operands: the plain version on a CPU or
+    meta tensor, the kernel launch on a CUDA one."""
     if _build.runs_plain(x.device, "matmul_w4"):
         return matmul_w4_plain(x, packed, scales, group=group, variant=variant)
     M, K = x.shape
@@ -153,4 +164,17 @@ def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
 
 
 matmul_w4.launches = 0
+
+
+@torch.library.custom_op("anakin_tpu_torch::matmul_w4", mutates_args=())
+def matmul_w4_op(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                 group: int, variant: str) -> torch.Tensor:
+    """The kernel as a registered op (see `matmul_int8_op`); `variant`
+    picks v1 or v2."""
+    return _matmul_w4(x, packed, scales, group=group, variant=variant)
+
+
+@matmul_w4_op.register_fake
+def _(x, packed, scales, group, variant):
+    return matmul_w4_plain(x, packed, scales, group=group, variant=variant)
 matmul_w4.launches_v2 = 0

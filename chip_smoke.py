@@ -18,9 +18,11 @@ on the LLM weights through CUDA graphs, speculative decoding on the LLM
 weights, the autotuned long-context prefill, VGG16, GoogLeNet and
 ShuffleNet v1 at 224 px, the SSD300-VGG16, YOLOv3-tiny and Faster R-CNN
 detectors at b1 and full width, the FCN-8s lite and ICNet lite
-segmentation nets, and the three RNN nets (the LSTM language model, the
-BiLSTM text classifier, the BiGRU-CRF tagger).  6-7 minutes as a
-command on an H100, of which 35-50 s are nvcc (the int8 core's sources
+segmentation nets, the three RNN nets (the LSTM language model, the
+BiLSTM text classifier, the BiGRU-CRF tagger), and model IO: a ResNet-50
+`torch.nn.Module` converted, quantized, saved, loaded, exported and run
+as a loaded program.  6-10 minutes as a
+command on an H100 (by the host's speed), of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
 
@@ -258,11 +260,37 @@ Phases:
               RNN_F32_TOL, captured equal to eager, the int8 nets node by
               node on the CPU's inputs (dense_int8 outputs and the tags
               equal), the int8 nets whole (reported).
+ 22. model io a ResNet-50 `torch.nn.Module` (the layout of `models/resnet.py`,
+              seed 0, BN statistics from default_rng(0)) through
+              `from_torch` at b1 and `optimize`: the float32 net at b32
+              against the module's own forward on the card (TF32 off), top-1
+              equal and logits within IO_LOGIT_TOL of the largest;
+              `calibrate(method="max")` on the card over two b1 batches,
+              `quantize_graph`, a bf16 net: one b32 forward with the counts
+              set to 0 just before and read just after (matmul_int8 40,
+              conv3x3_int8 13, no weight prepared); every distinct int8
+              kernel shape of that b32 forward bit-equal to its plain
+              version; the b1 eager forward timed with the wrappers
+              launching directly against every wrapper going through its
+              registered op (`torch.compiler.is_compiling` patched true),
+              in interleaved windows (outputs and launches equal); `save_model` ->
+              `load_model` (params byte-equal, graph JSON equal, outputs
+              bit-equal; bytes, save and load ms); `export_program` ->
+              `load_program`, one call with the counts set to 0 just before
+              and read just after (the same 40 + 13, outputs bit-equal),
+              ms/step beside the `Net`'s; the module through torch's ONNX
+              exporter and `from_onnx` (float32 output within IO_LOGIT_TOL
+              of the from_torch graph's); the converter CLI on the saved
+              module (its directory equal to `save_model`'s, byte for
+              byte); the kernel build cache in two processes (the second,
+              with no toolkit, builds nothing); `compare_accuracy` of the
+              float and int8 graphs over two b32 batches.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`; each entry of the kernels
 line also has `launches_by_path`, its launches in each int8 detector's
-and RNN net's forward.  `--kernels-only` runs phases 1, 7 and 13 and
+and RNN net's forward, in the converted ResNet-50's int8 forward and in
+the loaded program's call (phase 22).  `--kernels-only` runs phases 1, 7 and 13 and
 phases 18, 19 and 21's kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
@@ -3818,6 +3846,496 @@ def rnn_phase(report, card):
     return calls
 
 
+# ------------------------------------------------------ model IO, converters
+
+IO_BATCH = 32                          # the converted net's run batch
+IO_DIR = os.path.join(ROOT, "build", "model_io")
+IO_LOGIT_TOL = 1e-4                    # of the largest |logit|
+ROUTE_ROUNDS, ROUTE_ITERS = 16, 20     # window pairs, forwards a window
+
+
+class TorchBottleneck(torch.nn.Module):
+    """A ResNet bottleneck of `torch.nn` layers, the stride on the 3x3."""
+
+    def __init__(self, cin, planes, stride, downsample):
+        super().__init__()
+        nn = torch.nn
+        cout = planes * 4
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(cout)
+        self.relu = nn.ReLU()
+        self.down = (nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
+                                   nn.BatchNorm2d(cout))
+                     if downsample else None)
+
+    def forward(self, x):
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + (x if self.down is None else self.down(x)))
+
+
+class TorchResNet50(torch.nn.Module):
+    """ResNet-50 of `torch.nn` layers in the layout of `models/resnet.py`:
+    a 7x7 stem, a 3x3 max pool with ceil_mode, [3, 4, 6, 3] bottlenecks,
+    GAP and an fc of 1000."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.stem = nn.Sequential(
+            nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+            nn.ReLU(), nn.MaxPool2d(3, 2, ceil_mode=True))
+        blocks, cin = [], 64
+        for stage, (planes, n) in enumerate(zip((64, 128, 256, 512),
+                                                (3, 4, 6, 3))):
+            for i in range(n):
+                blocks.append(TorchBottleneck(cin, planes,
+                                              2 if stage and not i else 1,
+                                              i == 0))
+                cin = planes * 4
+        self.blocks = nn.Sequential(*blocks)
+        self.gap = nn.AdaptiveAvgPool2d(1)
+        self.fc = nn.Linear(cin, 1000)
+
+    def forward(self, x):
+        y = self.blocks(self.stem(x))
+        return self.fc(torch.flatten(self.gap(y), 1))
+
+
+def torch_resnet50():
+    """`TorchResNet50` with `torch.manual_seed(0)` init, and BN running
+    statistics and affine terms drawn from default_rng(0), so that folding
+    them is not the identity."""
+    torch.manual_seed(0)
+    m = TorchResNet50().eval()
+    gen = np.random.default_rng(0)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                c = mod.num_features
+                for t, v in ((mod.running_mean, gen.normal(0, 0.1, c)),
+                             (mod.running_var, gen.uniform(0.5, 1.5, c)),
+                             (mod.weight, gen.uniform(0.5, 1.0, c)),
+                             (mod.bias, gen.normal(0, 0.1, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return m
+
+
+def export_onnx_bytes(module, example):
+    """The module through torch's own ONNX exporter (TorchScript, opset
+    13), as the JAX package's tests make real ONNX bytes: the machine has
+    no `onnx` package, which torch needs only in `_add_onnxscript_fn`, a
+    passthrough without custom onnxscript functions, so that one hook is
+    replaced; every byte comes from torch's serializer."""
+    import io
+
+    from torch.onnx._internal.torchscript_exporter import onnx_proto_utils
+
+    orig = onnx_proto_utils._add_onnxscript_fn
+    onnx_proto_utils._add_onnxscript_fn = lambda model_bytes, opsets: model_bytes
+    try:
+        buf = io.BytesIO()
+        torch.onnx.export(module, example, buf, opset_version=13,
+                          dynamo=False, do_constant_folding=True)
+    finally:
+        onnx_proto_utils._add_onnxscript_fn = orig
+    return buf.getvalue()
+
+
+def _same_params(a, b, what):
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: param names differ")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if (x.dtype, x.shape) != (y.dtype, y.shape) or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{what}: param {k} differs ({x.dtype} "
+                                 f"{x.shape} vs {y.dtype} {y.shape})")
+
+
+def _outputs_equal(a, b, what):
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            d = float((a[k].float() - b[k].float()).abs().max())
+            raise AssertionError(f"{what}: output {k} differs by {d:g}")
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+CACHE_CHILD = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+from anakin_tpu_torch.kernels import _build
+from anakin_tpu_torch.model_io import enable_compilation_cache
+enable_compilation_cache(sys.argv[1])
+lib, secs, _ = _build.build(sys.argv[2])
+_build.load(sys.argv[2])
+print(json.dumps({{"lib": lib, "build_s": secs}}))
+"""
+
+
+def compilation_cache_check(report):
+    """Two processes with `enable_compilation_cache(<fresh dir>)`: the first
+    builds the smallest kernel source (its headers counted) there, the
+    second, with no CUDA toolkit it could find (CUDA_HOME pointed at
+    nothing), loads the same library and builds nothing."""
+    from anakin_tpu_torch.kernels import _build
+
+    def source_bytes(path):  # the file and the headers it includes
+        with open(path) as f:
+            text = f.read()
+        return len(text) + sum(source_bytes(os.path.join(_build.CSRC, h))
+                               for h in re.findall(r'#include "(\S+)"', text))
+
+    name = min(_build.SOURCES, key=lambda n: source_bytes(
+        os.path.join(_build.CSRC, n + ".cu")))
+    cache = os.path.join(IO_DIR, "kernel_cache")
+    runs = []
+    for env in (dict(os.environ),
+                dict(os.environ, CUDA_HOME=os.path.join(IO_DIR, "no_cuda"))):
+        proc = subprocess.run(
+            [sys.executable, "-c", CACHE_CHILD.format(root=ROOT), cache, name],
+            capture_output=True, text=True, env=env, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"cache process failed:\n{proc.stdout}"
+                                 f"{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    log(f"[io] compilation cache, {name}: first process built in "
+        f"{runs[0]['build_s']:.1f} s, second (no toolkit) in "
+        f"{runs[1]['build_s']:.1f} s, both {os.path.relpath(runs[1]['lib'], ROOT)}")
+    if runs[0]["build_s"] <= 0 or runs[1]["build_s"] != 0 \
+            or runs[0]["lib"] != runs[1]["lib"]:
+        raise AssertionError(f"the second process did not load the cached "
+                             f"library: {runs}")
+    report["io_compilation_cache"] = dict(source=name, runs=runs)
+
+
+class _KernelOpCount:
+    """Counts the `anakin_tpu_torch::*` registered ops a block of eager
+    code dispatches (a dispatch mode, so entered only for a count)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "anakin_tpu_torch":
+                    name = func.overloadpacket.__name__
+                    counts[name] = counts.get(name, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def op_route_cost(net, feed, out, card, rounds=ROUTE_ROUNDS,
+                  iters=ROUTE_ITERS):
+    """The host cost of the registered ops on an eager, host-bound b1
+    forward: the wrappers as they run eagerly (a direct ctypes launch)
+    against every wrapper going through its `torch.library` op, as it does
+    under a trace (`torch.compiler.is_compiling` patched to return True).
+    Each route is first checked (outputs bit-equal, the same launches, and
+    the op route dispatching one op a launch), then `rounds` pairs of
+    windows of `iters` forwards each, the pair's order alternating; wall
+    clock, synchronized at each window's ends."""
+    from unittest import mock
+
+    def via_op():
+        return mock.patch.object(torch.compiler, "is_compiling", lambda: True)
+
+    def forward():
+        return net.prediction(feed)[out]
+
+    forward()
+    torch.cuda.synchronize()
+    reset_counts()
+    y_direct = forward()
+    torch.cuda.synchronize()
+    direct_counts = read_counts()
+    with via_op(), _KernelOpCount() as ops:
+        reset_counts()
+        y_op = forward()
+        torch.cuda.synchronize()
+        op_counts = read_counts()
+    _outputs_equal({out: y_direct}, {out: y_op}, "the op route")
+    launched = {k: v for k, v in direct_counts.items() if v}
+    if op_counts != direct_counts or ops.counts != launched:
+        raise AssertionError(f"routes differ: direct {direct_counts}, op "
+                             f"{op_counts}, ops dispatched {ops.counts}")
+
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            forward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    def op_window():
+        with via_op():
+            return window()
+
+    with via_op():
+        forward()  # the op route's first call out of the timing
+    direct, op = [], []
+    for r in range(rounds):
+        if r % 2:
+            op.append(op_window())
+            direct.append(window())
+        else:
+            direct.append(window())
+            op.append(op_window())
+    diffs = sorted(o - d for o, d in zip(op, direct))
+    n_calls = sum(launched.values())
+    res = dict(batch=int(next(iter(feed.values())).shape[0]), rounds=rounds,
+               iters=iters, kernel_calls=n_calls,
+               direct_ms=statistics.median(direct),
+               op_ms=statistics.median(op), direct_windows=direct,
+               op_windows=op, diff_ms=statistics.median(diffs),
+               diff_q1_ms=diffs[len(diffs) // 4],
+               diff_q3_ms=diffs[(3 * len(diffs)) // 4],
+               diff_positive=sum(d > 0 for d in diffs))
+    res["us_per_call"] = res["diff_ms"] / n_calls * 1e3
+    log(f"[io] registered ops' eager cost, b{res['batch']} int8 forward "
+        f"({n_calls} kernel calls, {rounds} window pairs of {iters}): direct "
+        f"{res['direct_ms']:.3f} ms, through the ops {res['op_ms']:.3f} ms; "
+        f"paired difference median {res['diff_ms']:.3f} ms (quartiles "
+        f"{res['diff_q1_ms']:.3f} / {res['diff_q3_ms']:.3f}, positive in "
+        f"{res['diff_positive']} of {rounds}), {res['us_per_call']:.1f} us a "
+        f"call | {card}")
+    return res
+
+
+def model_io_phase(report, card):
+    """Phase 22: a ResNet-50 `torch.nn.Module` through `from_torch`,
+    `optimize`, `calibrate` on the card and `quantize_graph`, its int8
+    kernels at the b32 forward's shapes against their plain versions, the
+    registered ops' eager cost at b1, then `save_model` / `load_model`, `export_program` / `load_program`, the
+    module through torch's ONNX exporter and `from_onnx`, the converter
+    CLI, the kernel build cache and `compare_accuracy`.  Returns the launches of the
+    converted int8 net's forward and of the loaded program's call."""
+    import shutil
+
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.kernels.matmul_int8 import prepare_b
+    from anakin_tpu_torch.model_io import (export_program, load_model,
+                                           load_program, save_model)
+    from anakin_tpu_torch.native import native_available
+    import yaml
+
+    from anakin_tpu_torch.quant import (calibrate, quantize_graph,
+                                        read_scale_table, write_scale_table)
+    from anakin_tpu_torch.runtime.net import build_forward
+    from anakin_tpu_torch.tools.accuracy import compare_accuracy
+    from anakin_tpu_torch.tools.converter import from_onnx, from_torch
+    from anakin_tpu_torch.tools.converter.converter import \
+        main as converter_main
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(IO_DIR, ignore_errors=True)
+    os.makedirs(IO_DIR)
+    rep = report["model_io"] = {}
+
+    # ------------------------------------------------ convert, float check
+    t0 = time.perf_counter()
+    module = torch_resnet50()
+    g = ak.optimize(from_torch(module, torch.zeros(1, 3, IMAGE, IMAGE)))
+    rep["convert_s"] = time.perf_counter() - t0
+    inp, out = g.inputs[0], g.outputs[0]
+    log(f"[io] from_torch + optimize of the ResNet-50 module (b1, {IMAGE} "
+        f"px): {rep['convert_s']:.1f} s, {len(g.nodes)} nodes, passes "
+        f"{g.applied_passes}")
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(IO_BATCH, 3, IMAGE, IMAGE)).astype(np.float32)).cuda()
+    feed = {inp: x.permute(0, 2, 3, 1).contiguous()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = module.cuda()(x)
+        got = ak.Net(g).prediction(feed)[out]
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    module.cpu()
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max()) / scale
+    top1 = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    log(f"[io] float32 net vs the module's forward on the card (TF32 off), "
+        f"b{IO_BATCH}: max |logit diff| {gap:.3g} of the largest "
+        f"({scale:.4g}), top-1 equal {top1}")
+    rep.update(float_gap=gap, largest_logit=scale, top1_equal=top1)
+    if not top1 or gap > IO_LOGIT_TOL:
+        raise AssertionError(f"converted net differs from the module: gap "
+                             f"{gap:g}, top-1 equal {top1}")
+
+    # ----------------------------------------------- quantize, launches
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(1)
+    scales = calibrate(g, [{inp: gen.normal(size=(1, IMAGE, IMAGE, 3))
+                            .astype(np.float32)} for _ in range(2)],
+                       method="max")
+    gq = quantize_graph(g, scales)
+    rep["quantize_s"] = time.perf_counter() - t0
+    net = ak.Net(gq, precision="bf16")
+    net.prediction(feed)
+    torch.cuda.synchronize()
+    reset_counts()
+    prepare_b.calls = 0
+    y = net.prediction(feed)
+    torch.cuda.synchronize()
+    counts_net = read_counts()
+    log(f"[io] calibrate (max, 2 b1 batches, on the card) + quantize_graph: "
+        f"{rep['quantize_s']:.1f} s; one b{IO_BATCH} int8 forward launches "
+        f"{counts_net}, weights prepared in it {prepare_b.calls}")
+    if counts_net != dict(no_launches(), matmul_int8=40, conv3x3_int8=13) \
+            or prepare_b.calls:
+        raise AssertionError(f"expected 40 + 13 launches and no weight "
+                             f"prepared, got {counts_net}, {prepare_b.calls}")
+    yf = y[out].float()
+    if tuple(yf.shape) != (IO_BATCH, 1000) or not torch.isfinite(yf).all():
+        raise AssertionError(f"bad int8 output {tuple(yf.shape)}")
+    rep["launches"] = counts_net
+
+    # every distinct kernel shape of this b32 forward against its plain
+    # version, the shapes tapped from a forward as phase 3 taps them
+    edges = [e for n in gq.nodes.values() for e in n.outputs]
+    fwd, _ = build_forward(gq, "bf16", tap_edges=edges)
+    with torch.inference_mode():
+        shapes = {k: tuple(v.shape) for k, v in fwd(net.params, feed).items()}
+    calls = kernel_calls(gq, shapes)
+    by_kernel = {k: sum(1 for kernel, _ in calls if kernel == k)
+                 for k in counts_net}
+    if by_kernel != counts_net:
+        raise AssertionError(f"the graph's kernel calls {by_kernel} are not "
+                             f"the forward's launches {counts_net}")
+    cnn_kernel_checks(report, {"converted ResNet-50 int8": calls},
+                      key="io_kernel_checks", tag="io", exact=True)
+    rep["route"] = op_route_cost(net, {inp: feed[inp][:1].contiguous()}, out,
+                                 card)
+
+    # --------------------------------------------------- save and load
+    model_dir = os.path.join(IO_DIR, "model")
+    t0 = time.perf_counter()
+    save_model(gq, model_dir)
+    rep["save_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loaded = load_model(model_dir)
+    rep["load_ms"] = (time.perf_counter() - t0) * 1e3
+    rep["dir_bytes"] = _dir_bytes(model_dir)
+    rep["native_available"] = native_available()
+    _same_params(gq.params, loaded.params, "load_model")
+    save_model(loaded, os.path.join(IO_DIR, "again"))
+    with open(os.path.join(model_dir, "graph.json")) as f1, \
+            open(os.path.join(IO_DIR, "again", "graph.json")) as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("the loaded graph's JSON differs")
+    net2 = ak.Net(loaded, precision="bf16")
+    y2 = net2.prediction(feed)
+    _outputs_equal(y, y2, "the loaded net")
+    log(f"[io] save_model {rep['save_ms']:.1f} ms, load_model "
+        f"{rep['load_ms']:.1f} ms ({rep['dir_bytes']} bytes; native loader "
+        f"{rep['native_available']}): params byte-equal, graph JSON equal, "
+        f"outputs bit-equal")
+
+    # -------------------------------------------------- export and load
+    prog_path = os.path.join(IO_DIR, "resnet50_int8.pt2")
+    t0 = time.perf_counter()
+    export_program(net2, feed, prog_path)
+    rep["export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = load_program(prog_path)
+    rep["load_program_s"] = time.perf_counter() - t0
+    run(feed)
+    torch.cuda.synchronize()
+    reset_counts()
+    y3 = run(feed)
+    torch.cuda.synchronize()
+    counts_prog = read_counts()
+    _outputs_equal(y, y3, "the loaded program")
+    if counts_prog != counts_net:
+        raise AssertionError(f"the program launched {counts_prog}, the net "
+                             f"{counts_net}")
+    rep["program_ms"] = cuda_ms(lambda: run(feed), iters=10)
+    rep["net_ms"] = cuda_ms(lambda: net2.prediction(feed), iters=10)
+    rep["program_bytes"] = os.path.getsize(prog_path)
+    log(f"[io] export_program {rep['export_s']:.1f} s ({rep['program_bytes']}"
+        f" bytes), load_program {rep['load_program_s']:.1f} s; one call "
+        f"launches {counts_prog}, outputs bit-equal; b{IO_BATCH} "
+        f"{rep['program_ms']:.3f} ms/step loaded program, {rep['net_ms']:.3f} "
+        f"Net | {card}")
+
+    # ------------------------------------------- ONNX and the converter CLI
+    t0 = time.perf_counter()
+    blob = export_onnx_bytes(module, torch.zeros(1, 3, IMAGE, IMAGE))
+    go = ak.optimize(from_onnx(blob))
+    y_onnx = ak.Net(go).prediction({go.inputs[0]: feed[inp]})[go.outputs[0]]
+    onnx_gap = float((y_onnx - got).abs().max()) / float(got.abs().max())
+    onnx_top1 = bool(torch.equal(y_onnx.argmax(-1), got.argmax(-1)))
+    rep["onnx"] = dict(seconds=time.perf_counter() - t0, bytes=len(blob),
+                       nodes=len(go.nodes), gap=onnx_gap, top1_equal=onnx_top1)
+    log(f"[io] torch.onnx.export -> from_onnx -> optimize: {len(blob)} bytes, "
+        f"{len(go.nodes)} nodes, {rep['onnx']['seconds']:.1f} s; float32 "
+        f"output vs the from_torch graph's, b{IO_BATCH}: {onnx_gap:.3g} of "
+        f"the largest, top-1 equal {onnx_top1}")
+    if onnx_gap > IO_LOGIT_TOL or not onnx_top1:
+        raise AssertionError(f"the ONNX graph differs: {rep['onnx']}")
+    t0 = time.perf_counter()
+    table = os.path.join(IO_DIR, "scales.txt")
+    write_scale_table(scales, table)
+    torch.save(module, os.path.join(IO_DIR, "resnet50.pt"))
+    config = os.path.join(IO_DIR, "config.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(dict(
+            TargetFramework="TORCH", ModelPath=os.path.join(IO_DIR, "resnet50.pt"),
+            ExampleInputShape=[1, 3, IMAGE, IMAGE], Optimize=True,
+            ScaleTable=table, Output=os.path.join(IO_DIR, "cli")), f)
+    if converter_main([config]) != 0:
+        raise AssertionError("the converter CLI failed")
+    rep["cli_s"] = time.perf_counter() - t0
+    save_model(quantize_graph(g, read_scale_table(table)),
+               os.path.join(IO_DIR, "cli_reference"))
+    for name in ("graph.json", "weights.safetensors"):
+        with open(os.path.join(IO_DIR, "cli", name), "rb") as f1, \
+                open(os.path.join(IO_DIR, "cli_reference", name), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"the CLI's {name} differs")
+    log(f"[io] converter CLI (TORCH, optimize, scale table) on the saved "
+        f"module: {rep['cli_s']:.1f} s, the directory equals save_model of "
+        f"the same graph byte for byte")
+
+    # ---------------------------------------- the cache and the harness
+    compilation_cache_check(report)
+    gen = np.random.default_rng(2)
+    acc = compare_accuracy(g, gq, [
+        {inp: gen.normal(size=(IO_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)}
+        for _ in range(2)])
+    log(f"[io] compare_accuracy (float32 nets, two b{IO_BATCH} batches): "
+        f"{acc}")
+    if acc["samples"] != 2 * IO_BATCH or not all(
+            0.0 <= acc[k] <= 1.0 for k in ("top1_agreement", "top5_overlap")):
+        raise AssertionError(f"bad accuracy report {acc}")
+    rep["accuracy"] = acc
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 22 took {rep['phase_s']:.0f} s")
+    return {"converted ResNet-50 int8": counts_net,
+            "exported program": counts_prog}
+
+
 def main(argv) -> int:
     import argparse
 
@@ -3951,15 +4469,21 @@ def main(argv) -> int:
 
     # ------------------------------------------------------------ 21. RNNs
     rnn_calls = rnn_phase(report, card)
+    log(f"[time] RNN phase done at {time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------ 22. model IO and converters
+    io_counts = model_io_phase(report, card)
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)
     paths = dict({f"{net}_b1": calls for net, calls in det_calls.items()},
                  **rnn_calls)
-    for k in kernels:  # the detectors' and RNNs' int8 runs, each in its run
+    for k in kernels:  # later paths' int8 runs, each counted in its run
         k["launches_by_path"] = {
             path: sum(1 for kernel, _ in calls if kernel == k["name"])
             for path, calls in paths.items()}
+        for path, counts_io in io_counts.items():
+            k["launches_by_path"][path] = counts_io[k["name"]]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(report, kernels=kernels), f, indent=1)
