@@ -3,7 +3,9 @@
 `graph_from_jax` rebuilds a port `Graph` from any object with the JAX
 `Graph`'s fields, so a test can hand the JAX package's own optimized and
 quantized graph to the port's `Net`.  `params_from_numpy` moves host weights
-to a device as they are (the dtype cast for a precision is `Net`'s job).
+to a device as they are (the dtype cast for a precision is `Net`'s job);
+`to_numpy` brings a tensor back to the host as the JAX package's
+`np.asarray` of a device array would.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from .graph.ir import Graph, Node
 
-__all__ = ["graph_from_jax", "params_from_numpy"]
+__all__ = ["graph_from_jax", "params_from_numpy", "to_numpy"]
 
 
 def _to_tensor(v) -> torch.Tensor:
@@ -24,6 +26,18 @@ def _to_tensor(v) -> torch.Tensor:
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which numpy lacks
         return torch.from_numpy(np.array(a.view(np.int16))).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array of its dtype; bf16 becomes ml_dtypes'
+    bfloat16 (through an int16 view), which is what `np.asarray` of a JAX
+    bf16 array gives and what `Tensor.numpy()` refuses."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def params_from_numpy(params: Dict[str, np.ndarray],

@@ -29,6 +29,7 @@ port's counterpart of the JAX `Net`'s `jax.jit`.  Sharding (`mesh`,
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -157,36 +158,52 @@ class DeviceParams(dict):
 class _OpTimer:
     """Milliseconds of each node, by "name(op)": CUDA events around the
     node on the card (read after the step's synchronize), the host clock
-    on the CPU, whose ops return when they are done."""
+    on the CPU, whose ops return when they are done.  The node in flight
+    and the events not yet read are each thread's own, so that threads
+    stepping one `Net` (a `Worker`'s pool) time their own nodes."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.times: Dict[str, List[float]] = {}
-        self._pending: List[Tuple[str, Any, Any]] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
 
     def start(self, node: Node) -> None:
-        self._key = f"{node.name}({node.op})"
+        self._local.key = f"{node.name}({node.op})"
         if self.cuda:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
+            self._local.t0 = torch.cuda.Event(enable_timing=True)
+            self._local.t0.record()
         else:
-            self._t0 = time.perf_counter()
+            self._local.t0 = time.perf_counter()
 
     def stop(self) -> None:
+        key, t0 = self._local.key, self._local.t0
         if self.cuda:
             t1 = torch.cuda.Event(enable_timing=True)
             t1.record()
-            self._pending.append((self._key, self._t0, t1))
+            if not hasattr(self._local, "pending"):
+                self._local.pending = []
+            self._local.pending.append((key, t0, t1))
         else:
-            self.times.setdefault(self._key, []).append(
-                (time.perf_counter() - self._t0) * 1e3)
+            self._add(key, (time.perf_counter() - t0) * 1e3)
 
     def finish(self) -> None:
-        if self._pending:
+        pending = getattr(self._local, "pending", None)
+        if pending:
             torch.cuda.synchronize()
-            for key, t0, t1 in self._pending:
-                self.times.setdefault(key, []).append(t0.elapsed_time(t1))
-            self._pending = []
+            for key, t0, t1 in pending:
+                self._add(key, t0.elapsed_time(t1))
+            self._local.pending = []
+
+    def _add(self, key: str, ms: float) -> None:
+        with self._lock:
+            self.times.setdefault(key, []).append(ms)
+
+    def take(self) -> Dict[str, List[float]]:
+        """Every node's times so far, forgotten here."""
+        with self._lock:
+            times, self.times = self.times, {}
+        return times
 
 
 def _no_sharding(**given) -> None:
@@ -288,7 +305,7 @@ class Net:
         """The mean ms of each node over the timed steps, slowest first, and
         their sum, in the JAX package's format; then forget them.  With the
         timer off (`enable_op_timer=False`) only the TOTAL line, 0 ms."""
-        times = {} if self._timer is None else self._timer.times
+        times = {} if self._timer is None else self._timer.take()
         lines = []
         total = 0.0
         for key, ts in sorted(times.items(), key=lambda kv: -np.mean(kv[1])):
@@ -296,7 +313,6 @@ class Net:
             total += m
             lines.append(f"{key:60s} {m:10.4f} ms (n={len(ts)})")
         lines.append(f"{'TOTAL (sum of op means)':60s} {total:10.4f} ms")
-        times.clear()
         return "\n".join(lines)
 
     def compile(self, inputs: Dict[str, Any], static: Iterable[str] = ()):

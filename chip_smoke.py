@@ -19,9 +19,11 @@ weights, the autotuned long-context prefill, VGG16, GoogLeNet and
 ShuffleNet v1 at 224 px, the SSD300-VGG16, YOLOv3-tiny and Faster R-CNN
 detectors at b1 and full width, the FCN-8s lite and ICNet lite
 segmentation nets, the three RNN nets (the LSTM language model, the
-BiLSTM text classifier, the BiGRU-CRF tagger), and model IO: a ResNet-50
+BiLSTM text classifier, the BiGRU-CRF tagger), model IO: a ResNet-50
 `torch.nn.Module` converted, quantized, saved, loaded, exported and run
-as a loaded program.  6-10 minutes as a
+as a loaded program, and serving: the LLM scheduler behind the Generate
+RPCs, that ResNet-50 behind a batcher, a Worker and a server process
+under the daemon.  6-10 minutes as a
 command on an H100 (by the host's speed), of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
@@ -285,12 +287,41 @@ Phases:
               byte); the kernel build cache in two processes (the second,
               with no toolkit, builds nothing); `compare_accuracy` of the
               float and int8 graphs over two b32 batches.
+ 23. serving  a, after phase 16 on the same LLM weights: a DecodeScheduler
+              at phase 15's settings behind the Generate RPCs on a gRPC
+              socket (the service's monitor polling every 50 ms); six
+              concurrent clients (Generate and GenerateStream, prompts of
+              SCHED_LENGTHS, 32 new tokens) with the counts set to 0 just
+              before and read just after (flash_attention and matmul_w4
+              only); tokens equal to a direct `submit` of the same requests,
+              each stream's frames equal to its final tokens, NOT_FOUND for
+              an unknown model, the windows captured graphs while the monitor
+              polled, every flash and matmul_w4 shape of the scheduler's
+              graphs one that phase 7 checks; then a timed window of 16
+              requests from 8 clients once every window graph exists.  b, after phase 22 on the
+              directory it saved (the converted ResNet-50 int8, 224 px): a
+              ContinuousBatcher over the server's own factory (buckets 1, 2,
+              4, 8, bf16), 23 requests in bursts, the counts set to 0 just
+              before and read just after (40 matmul_int8 + 13 conv3x3_int8 a
+              batch), each result bit-equal to a fresh `Net` of its bucket on
+              the same zero-padded batch; every distinct int8 shape of the
+              four buckets bit-equal to its plain version; a Worker over the
+              b1 net (3 threads, sync and async in FIFO order, equal to
+              `net.prediction`); a ServingDaemon over a server process on the
+              card (ListModels, the device status, the child terminated and
+              restarted, Evaluate again); after a warm-up, timed windows of
+              200 Evaluate requests one at a time (each bit-equal to the b1
+              net's) and 256 from 8 clients at once: round trip and the
+              server's `duration_ms` by percentile; the b1 and b8 forwards in
+              process (CUDA events), boot and restart seconds, `plan_memory`
+              of the b8 graph beside the allocator's peak of a b8 forward.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`; each entry of the kernels
 line also has `launches_by_path`, its launches in each int8 detector's
 and RNN net's forward, in the converted ResNet-50's int8 forward and in
-the loaded program's call (phase 22).  `--kernels-only` runs phases 1, 7 and 13 and
+the loaded program's call (phase 22), in one batch of the served ResNet-50
+and in the six Generate requests (phase 23).  `--kernels-only` runs phases 1, 7 and 13 and
 phases 18, 19 and 21's kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
@@ -1400,11 +1431,11 @@ def llm_kernels(report, cfg):
         (B, F_, E, 128, f32, False, 0),
         (5, E, F_, 128, f32, True, 0),
         (4096, E, F_, 128, f32, False, 0),
-        # the M > 16 route at phase 15's bucket admissions, M = 8 L, scales
-        # in bf16: bucket 64 (8192 -> 2048 splits K through the workspace)
-        # and the largest, 1536
+        # the M > 16 route at the bucket admissions of phases 15 and 23,
+        # M = 8 L, scales in bf16: bucket 64 (8192 -> 2048 splits K through
+        # the workspace) to the largest, 1536 (512 is the 4096 rows above)
         *[(LLM_BATCH * L, k, n, 128, bf16, True, 0)
-          for L in (64, 1536) for k, n in ((E, F_), (F_, E))],
+          for L in (64, 256, 768, 1024, 1536) for k, n in ((E, F_), (F_, E))],
     ] + W4_GROUP_CASES
     results = []
     for i, (b, h, hkv, s, d, dt, causal, lens, calls) in enumerate(flash_cases):
@@ -4336,6 +4367,560 @@ def model_io_phase(report, card):
             "exported program": counts_prog}
 
 
+# ------------------------------------------------------------------ serving
+
+SERVE_NEW = 2 * SCHED_WINDOW   # new tokens of each Generate request
+SERVE_POLL_S = 0.05            # how often the service's monitor polls
+SERVE_BUCKETS = (1, 2, 4, 8)   # the served CNN's batch sizes
+SERVE_DELAY_MS = 10.0          # the in-process batcher's latency window
+# requests sent to the in-process batcher at once, each burst answered
+# before the next: one burst of 15, then single requests (bucket 1) and
+# bursts of 2 and 3
+SERVE_BURSTS = (15, 1, 1, 1, 2, 3)
+SERVE_BOOT_S = 120             # deadline for a server process to answer
+# timed windows, each after a warm-up: (concurrent clients, requests each)
+SERVE_LLM_STEADY = (8, 2)      # Generate, once every window graph exists
+SERVE_WARM = ((8, 8), (1, 20))  # Evaluate: every bucket's net built, then b1
+SERVE_SEQ = (1, 200)           # Evaluate, one request at a time
+SERVE_CONC = (8, 32)           # Evaluate, eight clients at once
+
+
+def _polling_monitor(interval_s):
+    """A CUDA `DeviceMonitor` that keeps the time of every sample."""
+    from anakin_tpu_torch.serving import DeviceMonitor
+
+    class Monitor(DeviceMonitor):
+        def __init__(self):
+            self.samples = []
+            super().__init__(interval_s=interval_s, device="cuda")
+
+        def _sample(self):
+            st = super()._sample()
+            self.samples.append(st.sampled_at)
+            return st
+
+    return Monitor()
+
+
+def llm_kernel_shapes(graphs, cfg):
+    """The flash_attention ([B, H, Hkv, S, D]) and matmul_w4 ([M, K, N])
+    shapes the nodes of `graphs` launch, from shape inference."""
+    from anakin_tpu_torch.graph.shape_infer import infer_shapes
+
+    shapes = set()
+    for g in graphs:
+        sh = infer_shapes(g)
+        for n in g.nodes.values():
+            if n.op == "dense_w4":
+                x, y = sh[n.inputs[0]].shape, sh[n.outputs[0]].shape
+                shapes.add(("matmul_w4", (int(np.prod(x[:-1])), x[-1], y[-1])))
+            elif n.attrs.get("impl") == "flash":
+                b, s, _ = sh[n.inputs[0]].shape
+                shapes.add(("flash_attention", (b, cfg.heads, cfg.kv_heads, s,
+                                                cfg.head_dim)))
+    return shapes
+
+
+def serve_llm_phase(report, cfg, params, card):
+    """Phase 23 a: the Generate RPCs over a DecodeScheduler at phase 15's
+    settings (b8, bf16, int8 KV cache, w4, windows of 16, cache views off)
+    on a gRPC socket, the service's monitor polling every 50 ms: six
+    concurrent clients (Generate and GenerateStream, prompts of
+    SCHED_LENGTHS) with the counts set to 0 just before and read just after;
+    tokens equal to a direct `submit` of the same requests, each stream's
+    frames equal to its final tokens, NOT_FOUND for an unknown model, the
+    windows captured graphs while the monitor polled, and every flash and
+    matmul_w4 shape the scheduler's graphs launch one that phase 7 holds to
+    its plain version.  Then a timed window of SERVE_LLM_STEADY requests,
+    once every window graph and bucket net exists (none may be made in it).
+    Returns the serving run's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+    from anakin_tpu_torch.runtime import DecodeScheduler
+    from anakin_tpu_torch.runtime.graphs import CapturedStep
+    from anakin_tpu_torch.serving import AnakinService, RpcClient, serve
+
+    t_phase = time.perf_counter()
+    rep = report["serve_llm"] = {}
+    t0 = time.perf_counter()
+    sched = DecodeScheduler(cfg, batch=LLM_BATCH, params=params,
+                            precision="bf16", kv_cache_dtype="int8",
+                            weight_only="w4", cache_view="off",
+                            fuse_window=SCHED_WINDOW, device="cuda")
+    rep["scheduler_build_s"] = time.perf_counter() - t0
+    monitor = _polling_monitor(SERVE_POLL_S)
+    svc = AnakinService(monitor=monitor.start())
+    svc.initial_llm("llm1b", sched)
+    server = serve(svc, port=0)
+    target = f"127.0.0.1:{server._bound_port}"
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, (L,)).astype(np.int32)
+               for L in SCHED_LENGTHS]
+
+    def call(i):
+        client = RpcClient(target)
+        try:
+            if i % 2 == 0:
+                return [client.generate("llm1b", prompts[i], SERVE_NEW,
+                                        request_id=i)]
+            return list(client.generate_stream("llm1b", prompts[i], SERVE_NEW,
+                                               request_id=i))
+        finally:
+            client.close()
+
+    try:
+        reset_counts()
+        n0 = len(monitor.samples)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+            answers = [f.result(timeout=600) for f in
+                       [pool.submit(call, i) for i in range(len(prompts))]]
+        rpc_s = time.perf_counter() - t0
+        counts = read_counts()
+        polls = monitor.samples[n0:]
+        status = monitor.status()
+        t0 = time.perf_counter()
+        direct = [f.result(timeout=600) for f in
+                  [sched.submit(p, SERVE_NEW) for p in prompts]]
+        direct_s = time.perf_counter() - t0
+        client = RpcClient(target)
+        try:
+            missing = []
+            for fn in (lambda: client.generate("nope", [1, 2]),
+                       lambda: list(client.generate_stream("nope", [1, 2]))):
+                try:
+                    fn()
+                    missing.append("no error")
+                except grpc.RpcError as e:
+                    missing.append(e.code().name)
+        finally:
+            client.close()
+        windows = list(sched._fused_runs.values())
+        graphs = [sched.graph, *sched._prefill_graphs.values()]
+        buckets = sorted(sched._prefill_graphs)
+        # a steady window: new prompts of the same lengths, once every
+        # window graph and bucket net exists
+        clients, each = SERVE_LLM_STEADY
+        steady_prompts = [
+            rng.integers(0, cfg.vocab, (SCHED_LENGTHS[i % len(SCHED_LENGTHS)],)
+                         ).astype(np.int32) for i in range(clients * each)]
+
+        def steady_client(c):
+            client, rows = RpcClient(target), []
+            try:
+                for i in range(c * each, (c + 1) * each):
+                    t1 = time.perf_counter()
+                    if i % 2 == 0:
+                        frames = [client.generate("llm1b", steady_prompts[i],
+                                                  SERVE_NEW, request_id=i)]
+                        first_ms = None
+                    else:
+                        frames = []
+                        for f in client.generate_stream(
+                                "llm1b", steady_prompts[i], SERVE_NEW,
+                                request_id=i):
+                            if not frames:
+                                first_ms = (time.perf_counter() - t1) * 1e3
+                            frames.append(f)
+                    rows.append(dict(
+                        rtt_ms=(time.perf_counter() - t1) * 1e3,
+                        service_ms=frames[-1]["info"]["duration_ms"],
+                        first_frame_ms=first_ms,
+                        new=len(frames[-1]["tokens"]) - len(steady_prompts[i])))
+            finally:
+                client.close()
+            return rows
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=clients) as pool:
+            steady = [r for f in [pool.submit(steady_client, c)
+                                  for c in range(clients)]
+                      for r in f.result(timeout=600)]
+        steady_s = time.perf_counter() - t0
+        made_in_window = (len(sched._fused_runs) - len(windows),
+                          sorted(set(sched._prefill_graphs) - set(buckets)))
+    finally:
+        server.stop(0).wait(10)
+        svc.shutdown()  # closes the scheduler and stops the monitor
+
+    tokens = []
+    for i, frames in enumerate(answers):
+        final = frames[-1]
+        if i % 2 and (not final.get("done") or [f["token"] for f in frames[:-1]]
+                      != final["tokens"][len(prompts[i]):]):
+            raise AssertionError(f"request {i}: the stream's frames are not "
+                                 f"its final tokens")
+        if final["request_id"] != i:
+            raise AssertionError(f"request {i} answered as {final['request_id']}")
+        tokens.append(final["tokens"])
+    equal = all(t == [int(v) for v in d] for t, d in zip(tokens, direct))
+    gaps = np.diff(polls)
+    service_ms = [a[-1]["info"]["duration_ms"] for a in answers]
+    n_tok = sum(len(t) - len(p) for t, p in zip(tokens, prompts))
+    log(f"[serve llm] scheduler (b{LLM_BATCH}, bf16, int8 KV, w4, windows of "
+        f"{SCHED_WINDOW}) built in {rep['scheduler_build_s']:.1f} s; "
+        f"{len(prompts)} concurrent clients (Generate / GenerateStream, "
+        f"prompts {list(SCHED_LENGTHS)}, {SERVE_NEW} new tokens; the "
+        f"warm-up: the first window capture and bucket nets) answered in "
+        f"{rpc_s:.2f} s, {n_tok / rpc_s:.1f} tokens/s; the service's ms per "
+        f"request {[round(d, 1) for d in service_ms]}; the same requests "
+        f"submitted directly {direct_s:.2f} s; tokens equal {equal}; unknown "
+        f"model {missing}; launches while serving {counts} | {card}")
+    log(f"[serve llm] the monitor polled {len(polls)} times while serving "
+        f"(every {SERVE_POLL_S * 1e3:.0f} ms asked, largest gap "
+        f"{gaps.max() * 1e3 if gaps.size else float('nan'):.1f} ms), last "
+        f"{status.to_dict()}; {len(windows)} window graphs captured, buckets "
+        f"admitted {buckets}")
+    if not equal:
+        raise AssertionError("the RPC tokens differ from direct submission")
+    if missing != ["NOT_FOUND"] * 2:
+        raise AssertionError(f"an unknown model gave {missing}")
+    if not windows or not all(isinstance(r, CapturedStep) for r in windows):
+        raise AssertionError("the windows were not captured graphs")
+    if len(polls) < rpc_s / SERVE_POLL_S / 4 or not gaps.size \
+            or gaps.max() > 20 * SERVE_POLL_S:
+        raise AssertionError(f"the monitor did not poll while serving: "
+                             f"{len(polls)} samples in {rpc_s:.1f} s")
+    if status.device != torch.cuda.get_device_name(0) \
+            or status.bytes_in_use <= 0 or status.platform != "gpu":
+        raise AssertionError(f"bad device status {status}")
+    if counts != dict(no_launches(), flash_attention=counts["flash_attention"],
+                      matmul_w4=counts["matmul_w4"]) \
+            or not counts["flash_attention"] or not counts["matmul_w4"]:
+        raise AssertionError(f"expected flash_attention and matmul_w4 "
+                             f"launches only, got {counts}")
+    held = set()
+    for r in report["llm_kernel_configs"]:
+        if r["kernel"] in ("flash_attention", "matmul_w4") \
+                and r["dtype"] == "bfloat16":
+            held.add((r["kernel"], tuple(r["shape"][:5 if r["kernel"] ==
+                                                    "flash_attention" else 3])))
+    launched = llm_kernel_shapes(graphs, cfg)
+    unheld = sorted(launched - held)
+    log(f"[serve llm] {len(launched)} distinct flash / matmul_w4 shapes in the "
+        f"scheduler's graphs, none outside phase 7: {not unheld}")
+    if unheld:
+        raise AssertionError(f"shapes phase 7 does not check: {unheld}")
+    steady_tok = sum(r["new"] for r in steady)
+    st_ms = [r["service_ms"] for r in steady]
+    first = [r["first_frame_ms"] for r in steady if r["first_frame_ms"]]
+    log(f"[serve llm] steady window after the warm-up: {len(steady)} requests "
+        f"({clients} clients x {each}, prompts of {list(SCHED_LENGTHS)} in "
+        f"turn, {SERVE_NEW} new tokens) in {steady_s:.3f} s, {steady_tok} "
+        f"tokens, {steady_tok / steady_s:.1f} tokens/s; the service's ms a "
+        f"request median {statistics.median(st_ms):.1f} (min {min(st_ms):.1f}, "
+        f"max {max(st_ms):.1f}); a stream's first frame median "
+        f"{statistics.median(first):.1f} ms over {len(first)}; window graphs "
+        f"and bucket nets made in the window {made_in_window} | {card}")
+    if made_in_window != (0, []) or steady_tok != len(steady) * SERVE_NEW:
+        raise AssertionError(f"the steady window was not steady: made "
+                             f"{made_in_window}, {steady_tok} tokens")
+    rep.update(rpc_s=rpc_s, tokens=n_tok, tokens_per_s=n_tok / rpc_s,
+               steady_s=steady_s, steady_tokens=steady_tok,
+               steady_tokens_per_s=steady_tok / steady_s, steady=steady,
+               service_ms=service_ms, direct_s=direct_s, launches=counts,
+               polls=len(polls), largest_poll_gap_s=float(gaps.max()),
+               windows_captured=len(windows), buckets=buckets,
+               shapes=sorted([k, list(s)] for k, s in launched))
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 23 a took {rep['phase_s']:.0f} s | {card}")
+    return counts
+
+
+def serve_cnn_phase(report, card):
+    """Phase 23 b: the int8 ResNet-50 directory phase 22 saved, served.  In
+    process, a ContinuousBatcher over the server's own factory (buckets 1,
+    2, 4, 8, bf16) with the counts set to 0 just before and read just
+    after: each result bit-equal to a fresh `Net` of its bucket on the same
+    zero-padded batch, 40 matmul_int8 + 13 conv3x3_int8 a batch; every
+    distinct int8 shape of the four buckets bit-equal to its plain version;
+    a Worker over the b1 net (3 threads, sync and async in FIFO order).
+    Then a ServingDaemon over a server process on the card: ListModels, a
+    warm-up, then timed windows of Evaluate requests one at a time (each
+    bit-equal to the b1 net's) and from eight clients at once, each
+    request's round trip beside the server's `duration_ms`; the device
+    status, the child terminated and restarted, Evaluate again; the b1 and
+    b8 forwards in this process, boot and restart seconds, and the arena
+    plan beside the allocator's peak for the b8 net.  Returns the launches
+    of one served batch, from the counts."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from anakin_tpu_torch.convert import to_numpy
+    from anakin_tpu_torch.graph.passes.memory import plan_memory
+    from anakin_tpu_torch.model_io import load_model
+    from anakin_tpu_torch.runtime import Net, Worker
+    from anakin_tpu_torch.serving import ContinuousBatcher, RpcClient
+    from anakin_tpu_torch.serving.daemon import ServerSpec, ServingDaemon
+    from anakin_tpu_torch.serving.server import make_net_factory, with_batch
+
+    t_phase = time.perf_counter()
+    rep = report["serve_cnn"] = {}
+    model_dir = os.path.join(IO_DIR, "model")
+    graph = load_model(model_dir)
+    inp, out = graph.inputs[0], graph.outputs[0]
+    gen = np.random.default_rng(8)
+    images = [gen.normal(size=(IMAGE, IMAGE, 3)).astype(np.float32)
+              for _ in range(sum(SERVE_BURSTS))]
+
+    # ------------------------------------------------ in process: batcher
+    batcher = ContinuousBatcher(make_net_factory(graph, "bf16", "cuda"),
+                                [inp], buckets=SERVE_BUCKETS,
+                                max_delay_ms=SERVE_DELAY_MS)
+    try:
+        reset_counts()
+        outs, i = [], 0
+        t0 = time.perf_counter()
+        for n in SERVE_BURSTS:
+            outs += [f.result(timeout=300) for f in
+                     [batcher.submit({inp: x}) for x in images[i:i + n]]]
+            i += n
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+        sizes = batcher.batch_sizes_served()
+    finally:
+        batcher.shutdown()
+    nb = len(sizes)
+    log(f"[serve cnn] in-process batcher (buckets {list(SERVE_BUCKETS)}, "
+        f"bf16, {SERVE_DELAY_MS} ms window): {sum(SERVE_BURSTS)} requests in "
+        f"bursts {list(SERVE_BURSTS)}, {serve_s:.2f} s with the nets' build, "
+        f"batches {sizes}; launches {counts}")
+    if counts != dict(no_launches(), matmul_int8=40 * nb, conv3x3_int8=13 * nb):
+        raise AssertionError(f"expected 40 + 13 launches a batch for {nb} "
+                             f"batches, got {counts}")
+    if max(sizes) < 2:
+        raise AssertionError(f"no batch of two or more: {sizes}")
+    fresh, i = {}, 0
+    for n in sizes:
+        bucket = next(b for b in SERVE_BUCKETS if b >= n)
+        net = fresh.setdefault(bucket, Net(with_batch(graph, bucket),
+                                           precision="bf16"))
+        batch = np.stack(images[i:i + n] + [np.zeros_like(images[0])] *
+                         (bucket - n))
+        want = to_numpy(net.prediction({inp: batch})[out])
+        for j in range(n):
+            if outs[i + j][out].tobytes() != want[j].tobytes():
+                raise AssertionError(f"request {i + j} differs from a fresh "
+                                     f"b{bucket} net")
+        i += n
+    log(f"[serve cnn] every result bit-equal to a fresh Net of its bucket on "
+        f"the same zero-padded batch ({out}: {outs[0][out].dtype})")
+    calls = {f"b{b}": cnn_calls(with_batch(graph, b)) for b in SERVE_BUCKETS}
+    for name, cs in calls.items():
+        if sum(k == "matmul_int8" for k, _ in cs) != 40 or \
+                sum(k == "conv3x3_int8" for k, _ in cs) != 13:
+            raise AssertionError(f"{name}: the graph's kernel calls are not "
+                                 f"40 + 13")
+    cnn_kernel_checks(report, calls, key="serve_kernel_checks", tag="serve",
+                      exact=True)
+
+    # --------------------------------------------------------- Worker, b1
+    net1 = fresh[1]
+    w = Worker(net1, num_threads=3)
+    try:
+        feeds = [{inp: x[None]} for x in images[:6]]
+        sync = [f.result(timeout=120) for f in
+                [w.sync_prediction(f) for f in feeds]]
+        for f in feeds:
+            w.async_prediction(f)
+        fifo = [w.async_get_result(timeout=120) for _ in feeds]
+        lat = w.prediction_times_ms()
+    finally:
+        w.shutdown()
+    w = Worker(net1, num_threads=1)  # the same requests, one at a time
+    try:
+        alone = [w.sync_prediction(f).result(timeout=120) for f in feeds]
+        lat1 = w.prediction_times_ms()
+    finally:
+        w.shutdown()
+    for f, a, b, c in zip(feeds, sync, fifo, alone):
+        want = to_numpy(net1.prediction(f)[out]).tobytes()
+        if a[out].tobytes() != want or b[out].tobytes() != want \
+                or c[out].tobytes() != want:
+            raise AssertionError("a Worker's result differs from "
+                                 "net.prediction")
+    log(f"[serve cnn] Worker over the b1 net, 3 threads: 6 sync and 6 async "
+        f"results equal to net.prediction, the async ones in FIFO order; "
+        f"median latency {statistics.median(lat):.2f} ms (wall), against "
+        f"{statistics.median(lat1):.2f} ms for the same requests one at a "
+        f"time on one thread")
+
+    # ----------------------------------------- a server under the daemon
+    # each image's answer at b1, which a request served alone must equal
+    ref1 = [to_numpy(net1.prediction({inp: x[None]})[out])[0] for x in images]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    target, name = f"127.0.0.1:{port}", "resnet50_int8"
+    daemon = ServingDaemon([ServerSpec(
+        model_dir=model_dir, name=name, port=port,
+        extra_args=["--buckets", ",".join(map(str, SERVE_BUCKETS)),
+                    "--device", "cuda"])])
+
+    def evaluate_when_up(k):
+        client = RpcClient(target)
+        try:
+            client.wait_ready(timeout=SERVE_BOOT_S)
+            return client.evaluate(name, {inp: images[k]}, request_id=k)
+        finally:
+            client.close()
+
+    def window(clients, each):
+        """`clients` RpcClients at once, each sending `each` Evaluate
+        requests one after another (request i: image i mod the images);
+        returns the wall seconds and, a request each, its round trip, the
+        server's `duration_ms` and the response."""
+        def run(c):
+            client, rows = RpcClient(target), []
+            try:
+                for i in range(c * each, (c + 1) * each):
+                    t1 = time.perf_counter()
+                    r = client.evaluate(name, {inp: images[i % len(images)]},
+                                        request_id=i)
+                    rows.append(((time.perf_counter() - t1) * 1e3,
+                                 r["info"]["duration_ms"], r))
+            finally:
+                client.close()
+            return rows
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=clients) as pool:
+            rows = [r for f in [pool.submit(run, c) for c in range(clients)]
+                    for r in f.result(timeout=300)]
+        return time.perf_counter() - t1, rows
+
+    def stats(wall, rows):
+        rtt = np.array([r[0] for r in rows])
+        srv = np.array([r[1] for r in rows])
+        return dict(requests=len(rows), wall_s=wall,
+                    requests_per_s=len(rows) / wall,
+                    rtt_ms={q: float(np.percentile(rtt, q)) for q in (50, 90, 99)},
+                    server_ms={q: float(np.percentile(srv, q))
+                               for q in (50, 90, 99)},
+                    outside_server_share=float(np.median((rtt - srv) / rtt)))
+
+    t0 = time.perf_counter()
+    daemon.start()
+    try:
+        first = evaluate_when_up(0)
+        boot_s = time.perf_counter() - t0
+        client = RpcClient(target)
+        try:
+            models = client.list_models()
+        finally:
+            client.close()
+        for w_ in SERVE_WARM:
+            window(*w_)
+        seq = window(*SERVE_SEQ)
+        conc = window(*SERVE_CONC)
+        status = conc[1][-1][2]["info"]["device_status"]
+        # the server's monitor samples every 5 s (the service's default):
+        # ask until a sample taken after its first net
+        client, t1 = RpcClient(target), time.perf_counter()
+        try:
+            while status["bytes_in_use"] <= 0 and time.perf_counter() - t1 < 15:
+                time.sleep(0.5)
+                status = client.evaluate(name, {inp: images[0]})[
+                    "info"]["device_status"]
+        finally:
+            client.close()
+        child = daemon._procs[0]
+        t1 = time.perf_counter()
+        child.terminate()
+        child.wait(timeout=30)
+        deadline = time.monotonic() + 60
+        while not (daemon.restarts()[0] == 1 and daemon.alive()[0]
+                   and daemon._procs[0] is not child):
+            if time.monotonic() > deadline:
+                raise AssertionError("the daemon did not restart its child "
+                                     "within 60 s")
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t1
+        after = evaluate_when_up(1)
+        restart_s = time.perf_counter() - t1
+    finally:
+        daemon.stop()
+    for r in [first, *(row[2] for row in seq[1]), after]:
+        k = r["request_id"] % len(images)
+        if r["outputs"][out].tobytes() != ref1[k].tobytes():
+            raise AssertionError(f"the server's answer for image {k}, served "
+                                 f"alone, differs from the b1 net's")
+    conc_diff = max(float(np.abs(row[2]["outputs"][out].astype(np.float32) -
+                                 ref1[row[2]["request_id"] % len(images)]
+                                 .astype(np.float32)).max())
+                    for row in conc[1])
+    if not all(row[2]["outputs"][out].shape == ref1[0].shape and
+               np.isfinite(row[2]["outputs"][out]).all() for row in conc[1]):
+        raise AssertionError("a concurrent answer is not finite or has the "
+                             "wrong shape")
+    st = status
+    if models != [name] or st["device"] != torch.cuda.get_device_name(0) \
+            or st["platform"] != "gpu" or st["bytes_in_use"] <= 0 \
+            or after["info"]["device_status"]["device"] != st["device"]:
+        raise AssertionError(f"bad ListModels {models} or status {st}")
+    if any(daemon.alive().values()):
+        raise AssertionError("a server process outlived daemon.stop()")
+    seq_st, conc_st = stats(*seq), stats(*conc)
+
+    # ------------------------------------------------------------ timings
+    net8 = fresh[8] if 8 in fresh else Net(with_batch(graph, 8),
+                                           precision="bf16")
+    feed1 = {inp: images[0][None]}
+    feed8 = {inp: np.stack(images[:8])}
+    b1_ms = cuda_ms(lambda: net1.prediction(feed1), iters=5)
+    b8_ms = cuda_ms(lambda: net8.prediction(feed8), iters=5)
+    torch.cuda.synchronize()
+    resting = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net8.prediction(feed8)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    plan = plan_memory(with_batch(graph, 8))
+
+    def fmt(d):
+        return (f"{d['requests']} requests in {d['wall_s']:.3f} s, "
+                f"{d['requests_per_s']:.1f} requests/s; round trip p50 / p90 "
+                f"/ p99 {d['rtt_ms'][50]:.2f} / {d['rtt_ms'][90]:.2f} / "
+                f"{d['rtt_ms'][99]:.2f} ms; in the server (duration_ms: "
+                f"window, batch, forward, copy back) {d['server_ms'][50]:.2f} / "
+                f"{d['server_ms'][90]:.2f} / {d['server_ms'][99]:.2f} ms; "
+                f"outside the server (client, msgpack, gRPC) median "
+                f"{100 * d['outside_server_share']:.1f}% of a round trip")
+
+    log(f"[serve cnn] daemon: server up and answering in {boot_s:.1f} s "
+        f"(one sample); ListModels {models}; device status {st}; after a "
+        f"warm-up of {SERVE_WARM} (clients, requests each) | {card}")
+    log(f"[serve cnn] Evaluate, one client, one request at a time: "
+        f"{fmt(seq_st)}; every answer bit-equal to the b1 net's | {card}")
+    log(f"[serve cnn] Evaluate, {SERVE_CONC[0]} clients at once: "
+        f"{fmt(conc_st)}; answers finite, largest difference from the b1 "
+        f"net's {conc_diff:.3g} (a batch of another size) | {card}")
+    log(f"[serve cnn] child terminated, restarted after {respawn_s:.1f} s, "
+        f"answering again {restart_s:.1f} s after the kill (one sample) | "
+        f"{card}")
+    log(f"[serve cnn] in this process, not the server's (CUDA events): b1 "
+        f"forward {b1_ms:.3f} ms, b8 {b8_ms:.3f} ms; b8 plan_memory: "
+        f"{plan.summary()}; allocator peak of a b8 forward "
+        f"{(peak - resting) / 1e6:.2f} MB above the resting "
+        f"{resting / 1e6:.2f} MB | {card}")
+    rep.update(batches=sizes, launches=counts, serve_s=serve_s,
+               worker_latency_ms=lat, worker_one_thread_ms=lat1, boot_s=boot_s, respawn_s=respawn_s,
+               restart_s=restart_s, sequential=seq_st, concurrent=conc_st,
+               sequential_rows=[r[:2] for r in seq[1]],
+               concurrent_rows=[r[:2] for r in conc[1]],
+               concurrent_max_diff=conc_diff,
+               b1_forward_ms=b1_ms, b8_forward_ms=b8_ms,
+               plan=dict(summary=plan.summary(), arena_bytes=plan.arena_bytes,
+                         naive_bytes=plan.naive_bytes),
+               peak_above_resting_bytes=peak - resting, resting_bytes=resting,
+               device_status=st)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 23 b took {rep['phase_s']:.0f} s | {card}")
+    return {k: v // nb for k, v in counts.items() if v}
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4447,9 +5032,14 @@ def main(argv) -> int:
 
     # ----------------------------------------------------- 16. speculative
     speculative_phase(report, cfg, params, card)
+    log(f"[time] speculative phase done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ------------------------------------------- 23 a. the Generate RPCs
+    serve_llm_counts = serve_llm_phase(report, cfg, params, card)
     del params
     torch.cuda.empty_cache()
-    log(f"[time] speculative phase done at "
+    log(f"[time] serving phase (LLM) done at "
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ------------------------------------------- 17. tuned long-context prefill
@@ -4473,6 +5063,12 @@ def main(argv) -> int:
 
     # ------------------------------------------ 22. model IO and converters
     io_counts = model_io_phase(report, card)
+    log(f"[time] model IO phase done at {time.perf_counter() - t_start:.0f} s")
+
+    # --------------------------------------- 23 b. the served int8 ResNet-50
+    io_counts["served ResNet-50 int8 (one batch)"] = dict(
+        no_launches(), **serve_cnn_phase(report, card))
+    io_counts["Generate RPCs (6 requests)"] = serve_llm_counts
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)
