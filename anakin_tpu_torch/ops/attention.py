@@ -62,14 +62,16 @@ def _project(x, w, heads, D):
     return y.reshape(B, S, heads, D).permute(0, 2, 1, 3).to(x.dtype)
 
 
-def _out_project(o, wo, x):
+def _out_project(o, wo, x, node):
     """o [B, H, S, D] (cast to x's dtype) @ wo [H*D, E] in float32 ->
-    [B, S, E] in x's dtype."""
+    [B, S, E] in x's dtype; in float32 with attr `partial_out` (a
+    tensor-parallel rank's partial sum over its heads, which the rank
+    all-reduces before the cast)."""
     B, H, S, D = o.shape
     of = o.to(x.dtype).to(torch.float32).permute(0, 2, 1, 3).reshape(B, S, H * D)
     with full_fp32():
         y = torch.matmul(of, wo.to(x.dtype).to(torch.float32))
-    return y.to(x.dtype)
+    return y if node.attr("partial_out", False) else y.to(x.dtype)
 
 
 def _heads(node, wq):
@@ -114,7 +116,7 @@ def multi_head_attention(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         o = flash_attention(q, k, v, seg, seg, causal=causal)
     else:
         o = mha_reference(q, k, v, seg, seg, causal=causal)
-    return [_out_project(o, wo, x)]
+    return [_out_project(o, wo, x, node)]
 
 
 @register("mha_prefill")
@@ -156,7 +158,7 @@ def mha_prefill(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         with full_fp32():
             o = torch.einsum("bgrsk,bgkd->bgrsd", p_att, v.to(torch.float32))
         o = o.reshape(B, H, S, D)
-    return [_out_project(o, wo, x), cache_k, cache_v]
+    return [_out_project(o, wo, x, node), cache_k, cache_v]
 
 
 def _write_rows(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
@@ -228,7 +230,7 @@ def mha_decode(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     p_att = torch.softmax(s, dim=-1)
     with full_fp32():
         o = torch.einsum("bgrk,bgkd->bgrd", p_att, v_read).reshape(B, H, 1, D)
-    return [_out_project(o, wo, x), ck, cv]
+    return [_out_project(o, wo, x, node), ck, cv]
 
 
 def _write_chunk(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
@@ -296,4 +298,4 @@ def mha_verify(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     p_att = torch.softmax(s, dim=-1)
     with full_fp32():
         o = torch.einsum("bgrts,bgsd->bgrtd", p_att, v_read).reshape(B, H, T, D)
-    return [_out_project(o, wo, x), ck, cv]
+    return [_out_project(o, wo, x, node), ck, cv]

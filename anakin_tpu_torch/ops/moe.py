@@ -3,9 +3,11 @@
 Static-shape top-k routing: every expert computes every token and the
 combine weights (zero for the experts a token was not routed to) select,
 so there is no ragged dispatch.  All of it runs in float32 with TF32 off.
-The JAX package shards the expert dim over its mesh; the port's
-parallelism waits for ROADMAP module 9, so here the experts stay on one
-device.
+
+Under a mesh the node runs replicated on every rank: the JAX docstring
+says the expert dim shards over `model`, but its `shard_graph_params` has
+no `moe_ffn` rule, so its experts stay replicated too; the port follows
+the rules (ROADMAP §3).
 """
 
 from __future__ import annotations

@@ -249,17 +249,30 @@ def pool2d(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
 def dense(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Fully-connected with fused epilogue; x flattened from `axis`,
     w: (in, out)."""
-    x, w, bias, residual = _split_conv_inputs(node, xs)
-    axis = int(node.attr("axis", 1))
-    lead = tuple(x.shape[:axis])
-    xf = x.reshape(math.prod(lead), -1)
+    x, w = xs[0], xs[1]
+    xf = x.reshape(math.prod(x.shape[:int(node.attr("axis", 1))]), -1)
     with full_fp32():
         y = torch.matmul(xf.to(torch.float32), w.to(torch.float32))
-    y = _epilogue(node, y, bias, residual).reshape(lead + (w.shape[-1],))
+    return [y if node.attr("partial_out", False) else finish_dense(node, y, xs)]
+
+
+def finish_dense(node, y: torch.Tensor, xs: List[torch.Tensor]) -> torch.Tensor:
+    """The end of a dense op (`dense`, `dense_w8`, `dense_w4`) on its
+    float32 product y [rows, out] (`dense_w8`'s scale applied): bias ->
+    residual -> activation, x's lead dims back, then a `dense`'s requant
+    (attr `quant_out_scale`) or x's dtype.  With attr `partial_out` the ops
+    return y itself: a tensor-parallel rank's partial product over its rows
+    of w, which the rank all-reduces and then finishes here."""
+    x = xs[0]
+    rest = iter(xs[3 if node.op in ("dense_w8", "dense_w4") else 2:])
+    bias = next(rest) if node.attr("has_bias") else None
+    residual = next(rest) if node.attr("has_residual") else None
+    lead = tuple(x.shape[:int(node.attr("axis", 1))])
+    y = _epilogue(node, y, bias, residual).reshape(lead + (y.shape[-1],))
     qs = node.attr("quant_out_scale")
-    if qs is not None:
-        return [_requant(y, qs)]
-    return [y.to(x.dtype)]
+    if qs is not None and node.op not in ("dense_w8", "dense_w4"):
+        return _requant(y, qs)
+    return y.to(x.dtype)
 
 
 @register("embedding")

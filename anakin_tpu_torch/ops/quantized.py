@@ -57,7 +57,8 @@ from ..kernels.conv_int8 import conv3x3_int8
 from ..kernels.depthwise_int8 import depthwise3x3_int8
 from ..kernels.matmul_int8 import PreparedB, matmul_int8, prepare_b
 from ..kernels.matmul_w4 import matmul_w4
-from .nn import _epilogue, conv_f32, conv_pads, full_fp32, pair, pool2d
+from .nn import (_epilogue, conv_f32, conv_pads, finish_dense, full_fp32,
+                 pair, pool2d)
 from .registry import register
 
 __all__ = ["quantize_array", "dequantize_array", "conv_kind",
@@ -307,23 +308,24 @@ def dense_int8(node, xs: List[torch.Tensor],
     return [y.reshape(lead + (n_out,))]
 
 
-def _split_w_inputs(node, xs):
-    """inputs = [x, w_q, w_scale] + [bias]? + [residual]?, x flattened
-    from `axis` to [rows, K]."""
-    x, w_q, w_scale, bias, residual = _split_q_inputs(node, xs)
-    lead = tuple(x.shape[:int(node.attr("axis", 1))])
-    return x, x.reshape(math.prod(lead), -1), lead, w_q, w_scale, bias, residual
+def _w_operands(node, xs):
+    """(x flattened from `axis` to [rows, K], w_q, w_scale) of a weight-only
+    dense node's inputs [x, w_q, w_scale] + [bias]? + [residual]? (the rest
+    is `finish_dense`'s)."""
+    x, w_q, w_scale = xs[:3]
+    lead = x.shape[:int(node.attr("axis", 1))]
+    return x.reshape(math.prod(lead), -1), w_q, w_scale
 
 
 @register("dense_w8")
 def dense_w8(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Weight-only int8 fully-connected: x @ float(w_q) in float32, times
     the per-output-channel scale, then the epilogue."""
-    x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
+    xf, w_q, w_scale = _w_operands(node, xs)
     with full_fp32():
         y = torch.matmul(xf.to(torch.float32), w_q.to(torch.float32))
-    y = _epilogue(node, y * w_scale.to(torch.float32), bias, residual)
-    return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
+    y = y * w_scale.to(torch.float32)
+    return [y if node.attr("partial_out", False) else finish_dense(node, y, xs)]
 
 
 @register("conv2d_w8")
@@ -341,12 +343,11 @@ def dense_w4(node, xs: List[torch.Tensor]) -> List[torch.Tensor]:
     """Weight-only int4 fully-connected on `matmul_w4` (attr `w4_group`;
     v2 for `impl="pallas"` with `variant="v2"`, else v1), then the epilogue
     in float32."""
-    x, xf, lead, w_q, w_scale, bias, residual = _split_w_inputs(node, xs)
+    xf, w_q, w_scale = _w_operands(node, xs)
     v2 = node.attr("impl") == "pallas" and node.attr("variant") == "v2"
     y = matmul_w4(xf, w_q, w_scale, group=int(node.attr("w4_group")),
                   variant="v2" if v2 else "v1")
-    y = _epilogue(node, y, bias, residual)
-    return [y.reshape(lead + (w_q.shape[-1],)).to(x.dtype)]
+    return [y if node.attr("partial_out", False) else finish_dense(node, y, xs)]
 
 
 @register("pool2d_int8")

@@ -55,8 +55,22 @@ Cache views (`cache_view="auto"`): a window attends only the first `view`
 cache rows, the smallest of 128, 256, ... (doubling) that holds every
 active slot's position at the window's end; `"off"` reads every row.
 
-`device=None` means CUDA; `mesh` waits for the parallelism slice (ROADMAP
-module 9) and raises.
+`device=None` means CUDA.
+
+Tensor parallelism (`mesh=`, a `parallel.Mesh`; every rank of it builds the
+same scheduler): the nets run as the JAX scheduler builds them under a
+mesh, with the Megatron rules of `parallel.shard_graph_params` and the KV
+caches head-sharded (each rank holds Hkv/tp heads of every cache, where tp
+divides Hkv), every other input whole on every rank.  The mesh's first
+rank takes the submissions (`submit` raises on the others) and, before
+each step, broadcasts the step's plan to every rank: the requests
+admitted, the slots cancelled, and whether to stop; after each step it
+broadcasts the tokens it chose, which every rank then stores
+(`token_disagreements` counts the steps where a rank's own choice
+differed).  So every rank runs the same steps.  Under a mesh the fused
+windows, the per-step decode and the chunk step run eagerly: a gloo
+mesh's collectives run on the host, which a CUDA graph cannot capture.
+Every rank calls `close()`; the first rank's ends the others' loops.
 
 Usage:
     sched = DecodeScheduler(cfg, batch=8, fuse_window=16)   # on CUDA
@@ -88,8 +102,8 @@ from ..models.transformer import (
 )
 from ..quant import weight_only_quantize
 from .generate import prefill_attention_impl, prefill_bucket
-from .graphs import compile_step
-from .net import Net, _resolve_device
+from .graphs import EagerStep, compile_step
+from .net import Net, _check_mesh, _resolve_device
 
 __all__ = ["DecodeScheduler", "device_sample", "sample_token"]
 
@@ -229,10 +243,7 @@ class DecodeScheduler:
                  fuse_window: int = 0, weight_only: Optional[str] = None,
                  prefill_mode: str = "bucket", mesh=None,
                  cache_view: str = "auto", device=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh: a sharded scheduler waits for "
-                                      "the port's parallelism slice (ROADMAP "
-                                      "module 9)")
+        _check_mesh(mesh)
         if prefill_mode not in ("bucket", "chunked"):
             raise ValueError(f"prefill_mode {prefill_mode!r}")
         self.cfg = cfg
@@ -242,6 +253,9 @@ class DecodeScheduler:
         self.weight_only = weight_only
         self.prefill_mode = prefill_mode
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        self._leader = mesh is None or mesh.rank == int(mesh.devices.flat[0])
+        self.token_disagreements = 0
         self.params = params if params is not None else \
             make_transformer_params(cfg, seed)
         self._seed = seed
@@ -258,7 +272,7 @@ class DecodeScheduler:
         self.graph = self._maybe_weight_only(build_transformer_decode_step(
             cfg, batch, self.params, kv_cache_dtype=kv_cache_dtype,
             kv_scale=kv_scale, cache_update=cache_update))
-        self.net = Net(self.graph, precision=precision, device=self.device)
+        self.net = self._make_net(self.graph, shared=False)
         self._logits_edge = self.graph.outputs[0]
         self._cache_edges = [
             (self.graph.nodes[f"dec_att_{i}"].outputs[1],
@@ -275,7 +289,8 @@ class DecodeScheduler:
         # by every path for the scheduler's lifetime
         cdt = (torch.int8 if kv_cache_dtype == "int8" else
                torch.bfloat16 if precision == "bf16" else torch.float32)
-        shape = (batch, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+        shape = (batch, cfg.kv_heads // self._cache_split(), cfg.max_seq,
+                 cfg.head_dim)
         self._caches = {f"cache_{kv}_{i}": torch.zeros(shape, dtype=cdt,
                                                        device=self.device)
                         for i in range(cfg.layers) for kv in "kv"}
@@ -283,7 +298,10 @@ class DecodeScheduler:
         self._tok = np.zeros((batch, 1), np.int32)
         self._next_rid = 0
         self._slots: List[Optional[_Slot]] = [None] * batch
-        self._queue: "queue.Queue" = queue.Queue()
+        self._queue: "queue.Queue" = queue.Queue()  # submissions
+        # the requests to admit: the submissions themselves, or under a mesh
+        # the ones the first rank's plan named
+        self._admitq = self._queue if mesh is None else queue.Queue()
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
@@ -308,14 +326,41 @@ class DecodeScheduler:
     def _compile(self, fn, feed):
         """`fn` made replayable for `feed`'s shapes, with the caches bound
         as static inputs (written in place, never copied), as `Net.compile`
-        binds them for the per-step decode."""
-        return compile_step(fn, dict(feed, **self._caches), self._caches,
-                            self.device)
+        binds them for the per-step decode; eager under a mesh."""
+        make = compile_step if self.mesh is None else EagerStep
+        return make(fn, dict(feed, **self._caches), self._caches, self.device)
 
-    def _make_net(self, graph) -> Net:
-        """A Net on the decode net's weights (shared, not copied)."""
+    def _cache_split(self) -> int:
+        """The ranks the caches' heads split over (1: whole)."""
+        if self.mesh is None:
+            return 1
+        from ..parallel.mesh import MODEL_AXIS
+
+        tp = self.mesh.shape.get(MODEL_AXIS, 1)
+        return tp if tp > 1 and self.cfg.kv_heads % tp == 0 else 1
+
+    def _make_net(self, graph, shared: bool = True) -> Net:
+        """A Net of `graph`, on the decode net's weights where `shared`
+        (not copied); under a mesh sharded by the Megatron rules, the caches
+        head-sharded and left as the rank's block, every other input whole."""
+        dp = self.net.params if shared else None
+        if self.mesh is None:
+            return Net(graph, precision=self._precision, device=self.device,
+                       device_params=dp)
+        from ..parallel.mesh import MODEL_AXIS, Spec
+        from ..parallel.sharding import shard_graph_params
+
+        cache = (Spec(None, MODEL_AXIS, None, None) if self._cache_split() > 1
+                 else Spec())
+        specs = {k: cache if k.startswith("cache_") else Spec()
+                 for k in graph.inputs}
+        local = [e for n in graph.nodes.values()
+                 if n.op in ("mha_decode", "mha_verify", "mha_prefill")
+                 for e in n.outputs[1:]]
         return Net(graph, precision=self._precision, device=self.device,
-                   device_params=self.net.params)
+                   device_params=dp, mesh=self.mesh,
+                   param_sharding=shard_graph_params(graph, self.mesh),
+                   input_shardings=specs, local_outputs=local)
 
     def _maybe_weight_only(self, graph):
         """weight_only None | "w8" | "w4": `weight_only_quantize` of
@@ -340,7 +385,11 @@ class DecodeScheduler:
         `stop_tokens`: ids that end generation early (the stop token is
         the last token of the result).  `on_token(tok:int)` streams each
         generated token.  Cancel the returned future to evict the
-        request (before or during generation)."""
+        request (before or during generation).  Under a mesh only on its
+        first rank."""
+        if not self._leader:
+            raise RuntimeError("submit on the mesh's first rank: it takes "
+                               "the requests and plans every rank's steps")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -360,10 +409,53 @@ class DecodeScheduler:
         self._wake.set()
         return fut
 
-    def close(self) -> None:
+    def close(self, timeout: float = 60.0) -> None:
         self._stop = True
         self._wake.set()
-        self._thread.join(timeout=60)
+        self._thread.join(timeout=timeout)
+
+    # ------------------------------------------------------ the mesh's plan
+    def _sync_plan(self) -> bool:
+        """Under a mesh, once a loop: the first rank's admissions,
+        cancellations and stop, on every rank (the first rank waits here
+        while it has nothing to do).  False: stop."""
+        if self._leader:
+            if (all(s is None for s in self._slots) and self._queue.empty()
+                    and not self._stop):
+                self._wake.wait(timeout=0.1)
+                self._wake.clear()
+            new = []
+            while True:
+                try:
+                    new.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            new = [s for s in new if not s.future.cancelled()]
+            plan = {"stop": self._stop,
+                    "cancel": [b for b, s in enumerate(self._slots)
+                               if s is not None and s.future.cancelled()],
+                    "new": [(s.prompt, s.max_new, s.temperature, s.top_k,
+                             s.top_p, sorted(s.stop_set), s.rid) for s in new]}
+        plan = self.mesh.broadcast_object(plan if self._leader else None)
+        if not self._leader:
+            new = [_Slot(Future(), p, n, t, k, tp, st, None, rid, self._seed)
+                   for p, n, t, k, tp, st, rid in plan["new"]]
+        for s in new:
+            self._admitq.put(s)
+        for b in plan["cancel"]:
+            self._slots[b].finish_reason = "cancelled"
+            self._slots[b] = None
+        return not plan["stop"]
+
+    def _agree(self, x):
+        """Under a mesh, the first rank's `x` (a step's tokens) on every
+        rank, a rank whose own differs counted in `token_disagreements`."""
+        if self.mesh is None:
+            return x
+        lead = self.mesh.broadcast_object(x if self._leader else None)
+        if not np.array_equal(np.asarray(lead), np.asarray(x)):
+            self.token_disagreements += 1
+        return lead
 
     # -------------------------------------------------------------- loop
     def _admit(self) -> None:
@@ -372,10 +464,11 @@ class DecodeScheduler:
                 continue
             while True:
                 try:
-                    req = self._queue.get_nowait()
+                    req = self._admitq.get_nowait()
                 except queue.Empty:
                     return
-                if not req.future.cancelled():
+                # under a mesh a cancellation takes effect through the plan
+                if self.mesh is not None or not req.future.cancelled():
                     break
             self._slots[b] = req
             # the slot restarts at position 0 (rows past pos are never read)
@@ -411,9 +504,16 @@ class DecodeScheduler:
             except Exception:                   # a stream sink must not
                 _log.exception("on_token callback failed")  # stop serving
 
-    def _sample_and_store(self, b: int, slot: _Slot, row: np.ndarray) -> None:
-        nxt = sample_token(row, slot.temperature, slot.top_k, slot.top_p,
-                           slot.rng)
+    def _sample_and_store(self, picks) -> None:
+        """Sample each (slot index, slot, logit row) of a step, agree on
+        the tokens across the mesh, store them."""
+        toks = self._agree([sample_token(row, slot.temperature, slot.top_k,
+                                         slot.top_p, slot.rng)
+                            for _, slot, row in picks])
+        for (b, slot, _), nxt in zip(picks, toks):
+            self._store(b, slot, int(nxt))
+
+    def _store(self, b: int, slot: _Slot, nxt: int) -> None:
         self._emit(slot, nxt)
         if nxt in slot.stop_set:
             self._finish(b, slot, "stop")
@@ -449,13 +549,16 @@ class DecodeScheduler:
         feed = dict(self._caches, input=self._tok.copy(), pos=self._pos.copy())
         try:
             if self._step_run is None:
-                self._step_run = self.net.compile(feed, static=self._caches)
+                net = self.net
+                self._step_run = self._compile(
+                    lambda x: net.forward(net.params, x, net.prepared), feed)
             out = self._step_run(feed)
             logits = out[self._logits_edge].to(torch.float32).cpu().numpy()
         except Exception as e:
             self._fail_active(e)
             return
         self.steps_run += 1
+        picks = []
         for b, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -466,7 +569,8 @@ class DecodeScheduler:
                 # once fed == len(prompt), the next step's logits give the
                 # first sampled token
                 continue
-            self._sample_and_store(b, slot, logits[b, 0])
+            picks.append((b, slot, logits[b, 0]))
+        self._sample_and_store(picks)
 
     # -------------------------------------------------- bucketed admission
     def _bucket(self, P: int) -> int:
@@ -493,7 +597,14 @@ class DecodeScheduler:
                  for i in range(self.cfg.layers) for j, kv in enumerate("kv")}
 
         def run(ids, nreal, slots):
-            out = pnet.prediction({"input": ids, "nreal": nreal})
+            feed = {"input": ids, "nreal": nreal}
+            if self.mesh is None:
+                out = pnet.prediction(feed)
+            else:  # the caches stay the rank's heads
+                with torch.inference_mode():
+                    out = pnet.forward(pnet.params, {
+                        k: torch.from_numpy(v).to(self.device)
+                        for k, v in feed.items()}, pnet.prepared)
             idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
             for name, e in edges.items():
                 cache = self._caches[name]
@@ -532,6 +643,7 @@ class DecodeScheduler:
             self.steps_run += 1
             self.prefill_steps_run += 1
             self.bucket_prefills_run += 1
+            picks = []
             for b in slots_b:
                 slot = self._slots[b]
                 if slot is None:
@@ -539,7 +651,8 @@ class DecodeScheduler:
                 P = len(slot.prompt)
                 slot.fed = P
                 self._pos[b] = P
-                self._sample_and_store(b, slot, rows[b])
+                picks.append((b, slot, rows[b]))
+            self._sample_and_store(picks)
 
     # ------------------------------------------------------ chunked prefill
     def _make_vrun(self, feed):
@@ -585,6 +698,7 @@ class DecodeScheduler:
             return
         self.steps_run += 1
         self.prefill_steps_run += 1
+        picks = []
         for b, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -594,9 +708,10 @@ class DecodeScheduler:
                 slot.fed += n
                 if slot.fed >= len(slot.prompt):
                     # the last prompt token's logits give the first sample
-                    self._sample_and_store(b, slot, rows[b])
+                    picks.append((b, slot, rows[b]))
                 continue
-            self._sample_and_store(b, slot, rows[b])
+            picks.append((b, slot, rows[b]))
+        self._sample_and_store(picks)
 
     # ------------------------------------------------------- fused window
     def _can_fuse(self) -> bool:
@@ -708,7 +823,7 @@ class DecodeScheduler:
             if run is None:
                 run = self._compile(self._window_fn(K, sampling, view), feed)
                 self._fused_runs[(sampling, view)] = run
-            packed = run(feed)["packed"].cpu().numpy()  # the window's fetch
+            packed = self._agree(run(feed)["packed"].cpu().numpy())
         except Exception as e:
             self._fail_active(e)
             return
@@ -746,12 +861,18 @@ class DecodeScheduler:
         on_card = (torch.cuda.device(self.device) if self.device.type == "cuda"
                    else contextlib.nullcontext())
         with on_card, torch.inference_mode():
-            while not self._stop:
-                self._reap_cancelled()
-                if all(s is None for s in self._slots) and self._queue.empty():
-                    self._wake.wait(timeout=0.1)
-                    self._wake.clear()
-                    continue
+            while True:
+                if self.mesh is None:
+                    if self._stop:
+                        break
+                    self._reap_cancelled()
+                    if all(s is None for s in self._slots) \
+                            and self._queue.empty():
+                        self._wake.wait(timeout=0.1)
+                        self._wake.clear()
+                        continue
+                elif not self._sync_plan():
+                    break
                 self._admit()
                 if all(s is None for s in self._slots):
                     continue

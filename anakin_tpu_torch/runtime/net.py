@@ -22,9 +22,12 @@ device (the decode scheduler's decode, verify and prefill nets run on one
 copy): the tensors are the same objects, and so are their prepared copies,
 which travel with the param dict (`DeviceParams.prepared`, by weight edge).
 `compile(inputs)` records a step into a CUDA graph (`runtime.graphs`), the
-port's counterpart of the JAX `Net`'s `jax.jit`.  Sharding (`mesh`,
-`param_sharding`, `input_shardings`) waits for the parallelism slice
-(ROADMAP module 9) and raises.
+port's counterpart of the JAX `Net`'s `jax.jit`.
+
+`Net(mesh=, param_sharding=, input_shardings=)` is one rank of a
+tensor- and data-parallel net over a `parallel.Mesh` of processes: the
+rank holds its blocks of the params, and `parallel.tensor_parallel`'s
+forward issues the collectives (each node's rule is there).
 """
 
 from __future__ import annotations
@@ -63,28 +66,9 @@ def build_forward(
     feed the interior edges consumed at the cut); `tap_edges` adds interior
     edges to the outputs.
     """
-    order = topological_order(graph)
-    if start_from is not None:
-        idx = [i for i, n in enumerate(order) if n.name == start_from]
-        if not idx:
-            raise KeyError(f"start_from node {start_from!r} not found")
-        order = order[idx[0]:]
-    if stop_at is not None:
-        idx = [i for i, n in enumerate(order) if n.name == stop_at]
-        if not idx:
-            raise KeyError(f"stop_at node {stop_at!r} not found")
-        order = order[: idx[0] + 1]
-
+    order, outputs = cut_order(graph, stop_at, start_from, tap_edges)
     compute_dtype = _COMPUTE_DTYPES[precision]
-    if stop_at is not None or start_from is not None:
-        outputs = list(order[-1].outputs)
-    else:
-        outputs = list(graph.outputs)
-    outputs = list(dict.fromkeys(outputs + list(tap_edges)))
-
-    node_prec: Dict[str, torch.dtype] = {
-        n.name: _COMPUTE_DTYPES[graph.precisions[n.name]]
-        for n in order if graph.precisions.get(n.name) in _COMPUTE_DTYPES}
+    node_prec = node_precisions(graph, order)
 
     def forward(params: Dict[str, torch.Tensor],
                 inputs: Dict[str, torch.Tensor],
@@ -125,6 +109,35 @@ def build_forward(
         return {e: lookup(e) for e in outputs}
 
     return forward, order
+
+
+def cut_order(graph: Graph, stop_at: Optional[str] = None,
+              start_from: Optional[str] = None, tap_edges: Sequence[str] = ()
+              ) -> Tuple[List[Node], List[str]]:
+    """The nodes `build_forward` runs, in order, and the edges it returns."""
+    order = topological_order(graph)
+    if start_from is not None:
+        idx = [i for i, n in enumerate(order) if n.name == start_from]
+        if not idx:
+            raise KeyError(f"start_from node {start_from!r} not found")
+        order = order[idx[0]:]
+    if stop_at is not None:
+        idx = [i for i, n in enumerate(order) if n.name == stop_at]
+        if not idx:
+            raise KeyError(f"stop_at node {stop_at!r} not found")
+        order = order[: idx[0] + 1]
+    if stop_at is not None or start_from is not None:
+        outputs = list(order[-1].outputs)
+    else:
+        outputs = list(graph.outputs)
+    return order, list(dict.fromkeys(outputs + list(tap_edges)))
+
+
+def node_precisions(graph: Graph, order: Sequence[Node]
+                    ) -> Dict[str, torch.dtype]:
+    """The dtype of each node that `graph.precisions` pins."""
+    return {n.name: _COMPUTE_DTYPES[graph.precisions[n.name]]
+            for n in order if graph.precisions.get(n.name) in _COMPUTE_DTYPES}
 
 
 def _resolve_device(device) -> torch.device:
@@ -206,12 +219,19 @@ class _OpTimer:
         return times
 
 
-def _no_sharding(**given) -> None:
-    named = [k for k, v in given.items() if v is not None]
-    if named:
-        raise NotImplementedError(
-            f"{', '.join(named)}: sharded nets wait for the port's "
-            f"parallelism slice (ROADMAP module 9)")
+def _check_mesh(mesh, **sharding) -> None:
+    """A mesh must be a `parallel.Mesh`; a sharding needs one."""
+    if mesh is None:
+        given = [k for k, v in sharding.items() if v is not None]
+        if given:
+            raise ValueError(f"{', '.join(given)}: a sharding splits over a "
+                             f"mesh; pass mesh= (a parallel.Mesh)")
+        return
+    from ..parallel.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh (make_mesh, "
+                        f"make_hybrid_mesh), not {type(mesh).__name__}")
 
 
 class Net:
@@ -231,8 +251,18 @@ class Net:
     graph needs and the dict lacks).  `strict_sync`: each step waits for
     the device and raises `FloatingPointError` on a non-finite float
     output.  `enable_op_timer`: each node is timed (`print_and_reset_
-    optime_summary` reports them).  `mesh`, `param_sharding` and
-    `input_shardings` raise `NotImplementedError` (ROADMAP module 9).
+    optime_summary` reports them).
+
+    `mesh` (a `parallel.Mesh`; every rank of it builds the same `Net`):
+    this rank's part of a sharded net.  `param_sharding` ({param edge:
+    Spec}, `parallel.shard_graph_params`; None replicates every param): the
+    rank keeps only its block of each param.  `input_shardings` ({input:
+    Spec}): an input's split where the default (the batch over the batch
+    axes, where it divides) is not wanted, such as head-sharded caches.
+    `local_outputs`: outputs that `forward` leaves as this rank's block
+    (`prediction` still gathers them).  The collective-overlap options
+    installed by `parallel.enable_collective_overlap` when the net is
+    built are its `compiler_options`.
     """
 
     def __init__(
@@ -249,18 +279,31 @@ class Net:
         mesh=None,
         param_sharding=None,
         input_shardings=None,
+        local_outputs: Sequence[str] = (),
     ) -> None:
-        _no_sharding(mesh=mesh, param_sharding=param_sharding,
-                     input_shardings=input_shardings)
+        _check_mesh(mesh, param_sharding=param_sharding,
+                    input_shardings=input_shardings)
         graph.validate()
         self.graph = graph
         self.precision = precision
         self.device = _resolve_device(device)
         self._strict_sync = strict_sync
         self._timer = _OpTimer(self.device) if enable_op_timer else None
-        self.forward, self.order = build_forward(
-            graph, precision, stop_at=stop_at, start_from=start_from,
-            tap_edges=tap_edges)
+        self.mesh = mesh
+        self.compiler_options = None
+        if mesh is None:
+            self.forward, self.order = build_forward(
+                graph, precision, stop_at=stop_at, start_from=start_from,
+                tap_edges=tap_edges)
+            host_params = graph.params
+        else:
+            from ..parallel.tensor_parallel import local_block
+
+            self._build_sharded(param_sharding, input_shardings,
+                                local_outputs, stop_at, start_from, tap_edges)
+            host_params = {k: np.ascontiguousarray(local_block(
+                v, self.forward.param_specs[k], mesh))
+                for k, v in graph.params.items()}
         if device_params is not None:
             missing = set(graph.params) - set(device_params)
             if missing:
@@ -277,17 +320,63 @@ class Net:
             dtype = _COMPUTE_DTYPES[precision]
             self.params = DeviceParams({
                 k: v.to(dtype) if v.is_floating_point() else v
-                for k, v in params_from_numpy(graph.params,
+                for k, v in params_from_numpy(host_params,
                                               self.device).items()})
         self.prepared = prepare_int8_weights(self.order, self.params,
                                              self.params.prepared)
 
+    def _build_sharded(self, param_sharding, input_shardings, local_outputs,
+                       stop_at, start_from, tap_edges) -> None:
+        from ..parallel.overlap import default_compiler_options
+        from ..parallel.tensor_parallel import (ShardedForward,
+                                                default_input_specs)
+
+        order, outputs = cut_order(self.graph, stop_at, start_from, tap_edges)
+        self.order = order
+        self.compiler_options = default_compiler_options() or None
+        self.input_specs = default_input_specs(self.graph, self.mesh,
+                                               input_shardings)
+        self.forward = ShardedForward(
+            self.graph, order, dict(param_sharding or {}), self.mesh,
+            _COMPUTE_DTYPES[self.precision],
+            node_precisions(self.graph, order), outputs, self.input_specs,
+            local_outputs, self.compiler_options)
+
+    def _sharded_prediction(self, inputs: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+        """Each input's block to this rank, the rank's step, then every
+        output whole."""
+        from ..parallel.mesh import MODEL_AXIS, batch_axes
+        from ..parallel.tensor_parallel import batch_split, local_block
+
+        fwd, mesh = self.forward, self.mesh
+        feed = {}
+        for k, v in inputs.items():
+            spec = self.input_specs.get(k, ())
+            if not isinstance(v, torch.Tensor):
+                v = np.asarray(v)
+            feed[k] = _to_device(local_block(v, spec, mesh), self.device)
+        with torch.inference_mode():
+            out = fwd(self.params, feed, self.prepared, self._timer)
+            for e in fwd.local_outputs & set(out):
+                if e in fwd.block_dim:
+                    out[e] = mesh.all_gather(out[e], MODEL_AXIS,
+                                             fwd.block_dim[e])
+            if any(batch_split(s, mesh) for s in self.input_specs.values()):
+                out = {e: mesh.all_gather(v, batch_axes(mesh), 0)
+                       if v.dim() else v for e, v in out.items()}
+        return out
+
     def prediction(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One forward step on numpy arrays or tensors; returns tensors on
-        the net's device."""
-        feed = {k: _to_device(v, self.device) for k, v in inputs.items()}
-        with torch.inference_mode():
-            out = self.forward(self.params, feed, self.prepared, self._timer)
+        the net's device (under a mesh, whole on every rank)."""
+        if self.mesh is not None:
+            out = self._sharded_prediction(inputs)
+        else:
+            feed = {k: _to_device(v, self.device) for k, v in inputs.items()}
+            with torch.inference_mode():
+                out = self.forward(self.params, feed, self.prepared,
+                                   self._timer)
         if self._timer is not None:
             self._timer.finish()
         if self._strict_sync:
@@ -323,7 +412,16 @@ class Net:
         the graph binds as they are, such as the caches a decode step
         writes in place: pass those tensors themselves, on the net's device,
         here and at every call (or leave them out of the call).  The step's
-        outputs are overwritten by its next call."""
+        outputs are overwritten by its next call.
+
+        Under a mesh it raises: the collectives of a gloo mesh run on the
+        host, which a CUDA graph cannot capture (ROADMAP: NCCL and capture
+        for tensor parallelism on two or more cards)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Net.compile under a mesh: the rank's collectives run on the "
+                "host (gloo) and a CUDA graph cannot capture them; step the "
+                "net with prediction() or forward()")
         return compile_step(
             lambda feed: self.forward(self.params, feed, self.prepared),
             inputs, static, self.device)

@@ -7,8 +7,8 @@ a few fixed sizes within a latency window, run through one `Net` per size,
 and each request's slice comes back through its future, on the host (bf16
 outputs as ml_dtypes' bfloat16).
 
-Two differences from the JAX batcher, each a fault of the reference that
-is not copied:
+Three differences from the JAX batcher, each a fault of the reference
+that is not copied:
 
   * a net factory or a forward that raises fails only that batch's
     futures, with the error, and the dispatcher goes on to the next batch
@@ -18,7 +18,11 @@ is not copied:
   * once a batch's window has passed, the requests already queued still
     join it, up to the largest bucket (the JAX `_take_batch` stops at the
     window's end, so a backlog older than the window is served one request
-    a batch).
+    a batch);
+  * a batch's size is recorded before any of its futures is resolved, for
+    a batch that fails as for one that succeeds (the JAX `_loop` appends it
+    after `_run` has set the results, so a caller that waits on every
+    future and then reads `batch_sizes_served()` can miss the last batch).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._batch_sizes_served: List[int] = []
+        self._sizes_lock = threading.Lock()
         self._thread.start()
 
     def _net(self, bucket: int) -> Net:
@@ -105,7 +110,8 @@ class ContinuousBatcher:
             batch.append(nxt)
         return batch
 
-    def _run(self, batch: List[_Request]) -> None:
+    def _run(self, batch: List[_Request]) -> List[Dict[str, np.ndarray]]:
+        """Each request's outputs, in batch order."""
         n = len(batch)
         bucket = next(b for b in self.buckets if b >= n)
         feed = {}
@@ -117,9 +123,7 @@ class ContinuousBatcher:
             feed[name] = stacked
         out = self._net(bucket).prediction(feed)
         host = {k: to_numpy(v) for k, v in out.items()}
-        for i, r in enumerate(batch):
-            if not r.future.cancelled():
-                r.future.set_result({k: v[i] for k, v in host.items()})
+        return [{k: v[i] for k, v in host.items()} for i in range(n)]
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -127,18 +131,26 @@ class ContinuousBatcher:
             if not batch:
                 return
             try:
-                self._run(batch)
-            except Exception as exc:  # the batch fails; the next is served
-                for r in batch:
-                    if not r.future.done():
-                        r.future.set_exception(exc)
-            self._batch_sizes_served.append(len(batch))
+                results, exc = self._run(batch), None
+            except Exception as e:  # the batch fails; the next is served
+                results, exc = None, e
+            with self._sizes_lock:  # recorded before any future resolves
+                self._batch_sizes_served.append(len(batch))
+            for i, r in enumerate(batch):
+                if r.future.cancelled():
+                    continue
+                if exc is None:
+                    r.future.set_result(results[i])
+                else:
+                    r.future.set_exception(exc)
 
     # ----------------------------------------------------------- lifecycle
     def batch_sizes_served(self) -> List[int]:
-        return list(self._batch_sizes_served)
+        with self._sizes_lock:
+            return list(self._batch_sizes_served)
 
-    def shutdown(self) -> None:
+    def shutdown(self, timeout: float = 5.0) -> None:
+        """Stop the dispatcher; wait for it at most `timeout` seconds."""
         self._stop.set()
         self._q.put(None)
-        self._thread.join(timeout=5)
+        self._thread.join(timeout=timeout)

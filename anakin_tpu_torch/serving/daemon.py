@@ -19,7 +19,10 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-__all__ = ["ServerSpec", "ServingDaemon"]
+__all__ = ["ServerSpec", "ServingDaemon", "TERM_WAIT_S"]
+
+# how long `stop` waits for a terminated child before it kills it
+TERM_WAIT_S = 10.0
 
 # the directory that holds the package, so that a child started from any
 # working directory imports this copy of it
@@ -94,7 +97,7 @@ class ServingDaemon:
                 p.terminate()
         for p in self._procs.values():
             try:
-                p.wait(timeout=10)
+                p.wait(timeout=TERM_WAIT_S)
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()

@@ -84,7 +84,7 @@ class DeviceMonitor:
     def status(self) -> DeviceStatus:
         return self._status
 
-    def stop(self) -> None:
+    def stop(self, timeout: float = 2.0) -> None:
         self._stop.set()
         if self._thread:
-            self._thread.join(timeout=2)
+            self._thread.join(timeout=timeout)

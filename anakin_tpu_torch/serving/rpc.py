@@ -152,12 +152,21 @@ class AnakinService:
     def list_models(self) -> Dict[str, Any]:
         return {"models": sorted(self._models)}
 
-    def shutdown(self) -> None:
+    def shutdown(self, timeout: Optional[float] = None) -> None:
+        """Stop every batcher, scheduler and the monitor.  `timeout`: the
+        seconds all of it may take together (each waits for its thread
+        only until that deadline); None leaves each its own default."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def left(default):
+            return default if deadline is None else max(
+                0.0, deadline - time.monotonic())
+
         for b in self._models.values():
-            b.shutdown()
+            b.shutdown(timeout=left(5.0))
         for s_ in self._llms.values():
-            s_.close()
-        self._monitor.stop()
+            s_.close(timeout=left(60.0))
+        self._monitor.stop(timeout=left(2.0))
 
 
 def _handler(service: AnakinService) -> grpc.GenericRpcHandler:

@@ -9,16 +9,32 @@ SIGINT: the per-process server the daemon supervises (reference: the
 per-device server processes forked by `framework/service/
 service_daemon.cpp`).  It runs on CUDA unless `--device` says otherwise,
 and exits with an error where there is no card.
+
+On SIGTERM the exit is bounded: gRPC's stop (in-flight RPCs get the
+reference's 2 s to drain), then the service's threads, each waited for
+only until its deadline (`EXIT_STEPS_S`, 4.5 s in all, well inside the
+daemon's `TERM_WAIT_S`), then the process ends with `os._exit`,
+without the interpreter's teardown (torch's and gRPC's threads there took
+seconds on a loaded CPU, and nothing in this process needs it: every
+reply has been sent and the output is flushed).  The exit prints each
+step's seconds.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
+import time
 
-__all__ = ["with_batch", "make_net_factory", "main"]
+__all__ = ["with_batch", "make_net_factory", "main", "EXIT_STEPS_S"]
+
+# the deadline of each step of the exit after SIGTERM, in seconds; gRPC's
+# stop gives in-flight RPCs GRPC_GRACE_S to finish, as the reference does
+EXIT_STEPS_S = {"grpc": 3.0, "service": 1.5}
+GRPC_GRACE_S = 2.0
 
 
 def with_batch(graph, batch: int):
@@ -80,14 +96,14 @@ def main(argv=None):
                     help="torch device (default CUDA; cpu to serve on the "
                          "CPU)")
     ap.add_argument("--overlap", default=None, choices=("default", "aggressive"),
-                    help="collective/compute overlap for multi-device "
-                         "serving: not yet in this package")
+                    help="collective/compute overlap of the tensor-parallel "
+                         "Nets built after it (parallel.overlap)")
     args = ap.parse_args(argv)
 
     if args.overlap:
-        raise NotImplementedError(
-            "--overlap: multi-device serving waits for the port's "
-            "parallelism slice (ROADMAP module 9)")
+        from ..parallel.overlap import enable_collective_overlap
+
+        enable_collective_overlap(args.overlap)
 
     from ..model_io import load_model
     from . import AnakinService, ContinuousBatcher, serve
@@ -109,11 +125,22 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     stop.wait()
-    # wait for grpc's shutdown before exiting: an unwaited stop races its
-    # threads against interpreter teardown
-    server.stop(grace=2).wait(timeout=15)
-    svc.shutdown()
-    return 0
+    exit_bounded(server, svc)
+
+
+def exit_bounded(server, svc, log=print) -> None:
+    """Stop `server` and `svc`, each step within its `EXIT_STEPS_S`
+    deadline, print the seconds each took, and end the process (code 0)."""
+    t0 = time.monotonic()
+    server.stop(grace=GRPC_GRACE_S).wait(timeout=EXIT_STEPS_S["grpc"])
+    t1 = time.monotonic()
+    svc.shutdown(timeout=EXIT_STEPS_S["service"])
+    t2 = time.monotonic()
+    log(f"anakin_tpu_torch server: exit in {t2 - t0:.3f} s (grpc "
+        f"{t1 - t0:.3f} s, service {t2 - t1:.3f} s)", flush=True)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

@@ -518,18 +518,22 @@ def build_graph(batch: int):
     return quantize_graph(g, read_scale_table(SCALES))
 
 
-def kernel_calls(graph, shapes):
+def kernel_calls(graph, shapes, local=None):
     """The kernel calls one forward makes: [(kernel, config)], where a
     config holds the GEMM or conv shape and the epilogue, read off the
-    graph's int8 nodes and the edge shapes of a run."""
+    graph's int8 nodes and the edge shapes of a run.  `local`: a
+    tensor-parallel rank's params ({edge: its block}); a node then makes
+    its call at its weight's out channels."""
     from anakin_tpu_torch.ops.quantized import _depthwise_kernel, conv_kind
 
     calls = []
     for node in graph.nodes.values():
         if node.op not in ("conv2d_int8", "dense_int8"):
             continue
-        w = graph.params[node.inputs[1]]
-        out = shapes[node.outputs[0]]
+        w = (graph.params if local is None else local)[node.inputs[1]]
+        out = tuple(shapes[node.outputs[0]])
+        if local is not None:
+            out = out[:-1] + (int(w.shape[-1]),)
         epi = dict(activation=node.attr("activation"),
                    bias=bool(node.attr("has_bias")),
                    residual=bool(node.attr("has_residual")),
@@ -1173,10 +1177,11 @@ def _flash_bound(q, k, n_pairs, segs):
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
 
 
-def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls):
+def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
+                timed=True):
     """flash_attention against mha_reference on the card; tolerance as in
     csrc/flash_attention.cu: float32 |d| <= 3e-5 max|v|; bf16 |d| <=
-    2^-7 |want| + 3e-5 max|v|."""
+    2^-7 |want| + 3e-5 max|v|.  `timed=False` skips the timings (None)."""
     import torch.nn.functional as F
     from anakin_tpu_torch.kernels.flash_attention import (flash_attention,
                                                           mha_reference)
@@ -1203,20 +1208,24 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls):
     tol = 3e-5 * vmax + (2.0 ** -7 * want.float().abs() if dtype == torch.bfloat16
                          else 0.0)
     ok = bool((d <= tol).all())
-    iters = 20 if S <= 512 else 5
-    ms = graph_ms(lambda: flash_attention(q, k, v, segs, segs, causal=causal),
-                  iters=iters)
-    plain_ms = graph_ms(lambda: mha_reference(q, k, v, segs, segs,
-                                              causal=causal), iters=2)
+    ms = plain_ms = library_ms = None
+    if timed:
+        iters = 20 if S <= 512 else 5
+        ms = graph_ms(lambda: flash_attention(q, k, v, segs, segs,
+                                              causal=causal), iters=iters)
+        plain_ms = graph_ms(lambda: mha_reference(q, k, v, segs, segs,
+                                                  causal=causal), iters=2)
+        kr = torch.repeat_interleave(k, H // Hkv, dim=1)
+        vr = torch.repeat_interleave(v, H // Hkv, dim=1)
+        if lengths is None:
+            lib = lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                         is_causal=causal)
+        else:
+            mask = allowed[:, None]
+            lib = lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                         attn_mask=mask)
+        library_ms = graph_ms(lib, iters=iters)
     flash_attention.launches = launches
-    kr = torch.repeat_interleave(k, H // Hkv, dim=1)
-    vr = torch.repeat_interleave(v, H // Hkv, dim=1)
-    if lengths is None:
-        lib = lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
-    else:
-        mask = allowed[:, None]
-        lib = lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
-    library_ms = graph_ms(lib, iters=iters)
     bms, by = _flash_bound(q, k, n_pairs, segs)
     return dict(kernel="flash_attention", shape=[B, H, Hkv, S, D],
                 dtype=str(dtype).split(".")[-1], causal=causal,
@@ -1247,13 +1256,15 @@ def _int4pack_yardstick(x, packed, scales, group):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
-def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
+def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
+             timed=True):
     """matmul_w4 (`variant` v1 or v2) against matmul_w4_plain on the card;
     `bf16_scales` hands the scales over in bf16, as a bf16 net does.
     Tolerance: the two sum the same float32 products in another order,
     and any order is within K * 2^-24 * (|x| @ |W|) of the exact sum, so
     |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
-    same inputs and counts the dequantized weights where the two differ."""
+    same inputs and counts the dequantized weights where the two differ.
+    `timed=False` skips the timings and the yardsticks (None)."""
     from anakin_tpu_torch.kernels.matmul_w4 import (_lib, matmul_w4,
                                                     matmul_w4_plain, unpack_w4,
                                                     unpack_w4_v2)
@@ -1277,6 +1288,14 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False):
     # sum_splits, except bf16 x at M <= 16, which sums in a cluster)
     splits = _lib().ak_matmul_w4_splits(
         M, N, K, g, int(dtype == torch.bfloat16) | 2 * int(bf16_scales))
+    if not timed:
+        matmul_w4.launches, matmul_w4.launches_v2 = launches
+        return dict(kernel="matmul_w4_v2" if variant == "v2" else "matmul_w4",
+                    shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
+                    bf16_scales=bf16_scales, splits=splits, ok=ok,
+                    max_abs_err=float(d.max()),
+                    max_rel_to_mag=float((d / mag).max()), ms=None,
+                    calls_per_run=calls)
     # enough copies of the weights that every call reads them from HBM
     n_copies = max(1, -(-100 * 2 ** 20 // (packed.numel() + 4 * scales.numel())))
     copies = [(x, packed.clone(), scales.clone()) for _ in range(n_copies)]
@@ -4921,6 +4940,678 @@ def serve_cnn_phase(report, card):
     return {k: v // nb for k, v in counts.items() if v}
 
 
+# ---------------------------------------------------------- parallelism
+
+# phase 24: two gloo ranks share the one card (NCCL refuses two ranks on
+# one device), so its times say nothing about scaling
+GLOO_LABEL = "gloo on one card: no scaling evidence"
+TP_RANKS = 2
+TP_RESNET_BATCH = 8
+# the TP scheduler's requests: prompts of buckets 64 (two), 640 and 1024
+# (flash), 16 new tokens each, b8 slots: the 1,000-token one parted from
+# the unsharded scheduler at a bf16 tie in an earlier run, so a parting is
+# held to the two top choices
+TP_SCHED_LENGTHS, TP_SCHED_NEW = (40, 600, 1000, 50), 16
+RING_SHAPE = dict(B=2, H=8, S=4096, D=128)
+PHASE24_DIR = os.path.join(ROOT, "build", "phase24")
+# gloo hands a CUDA tensor's device pointer to its socket on send / recv,
+# and the process aborts ("writev ... Bad address"; H100 runs of this
+# phase), so under gloo on CUDA that kind is staged without a probe
+GLOO_CUDA_ABORTS = ("send_recv",)
+
+
+def _tp_mesh(rank, port):
+    """Rank `rank` of the 2-rank gloo group on cuda:0 and its (1, 2) mesh;
+    the kinds gloo refuses on CUDA (probed, and GLOO_CUDA_ABORTS) staged
+    through pinned host memory."""
+    import torch.distributed as dist
+    from anakin_tpu_torch.parallel import initialize, make_mesh
+    from anakin_tpu_torch.parallel.mesh import (COLLECTIVE_KINDS,
+                                                probe_cuda_collectives)
+
+    torch.cuda.set_device(0)
+    initialize(f"localhost:{port}", num_processes=TP_RANKS, process_id=rank,
+               backend="gloo")
+    mesh = make_mesh(model=TP_RANKS)
+    taken = probe_cuda_collectives(mesh, "cuda", kinds=[
+        k for k in COLLECTIVE_KINDS if k not in GLOO_CUDA_ABORTS])
+    mesh.stage([k for k, ok in taken.items() if not ok] + list(GLOO_CUDA_ABORTS))
+    return mesh, {"backend": dist.get_backend(),
+                  "cards": torch.cuda.device_count(), "taken": taken,
+                  "staged": sorted(mesh.staged)}
+
+
+class launched_llm_shapes:
+    """Inside the block, the flash_attention and matmul_w4 launches are
+    recorded (`.seen`) as the arguments check_flash and check_w4 take,
+    read from the launches' own operands, over every entry of the block."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        import importlib
+
+        # the modules (the package's names are the wrappers)
+        fa, mw = (importlib.import_module(f"anakin_tpu_torch.kernels.{m}")
+                  for m in ("flash_attention", "matmul_w4"))
+        self._mods = fa, mw
+        self._runs = fa._flash_attention, mw._matmul_w4
+        run_fa, run_w4 = self._runs
+
+        def flash(q, k, v, q_segs, kv_segs, *, causal, sm_scale):
+            if q.is_cuda:
+                lens = None if q_segs is None else tuple(
+                    (q_segs == 0).sum(1).tolist())
+                B, H, S, D = q.shape
+                self.seen.add(("flash_attention", (
+                    B, H, k.shape[1], S, D, str(q.dtype), bool(causal), lens,
+                    abs(sm_scale * D ** 0.5 - 1.0) < 1e-12,
+                    q_segs is kv_segs)))
+            return run_fa(q, k, v, q_segs, kv_segs, causal=causal,
+                          sm_scale=sm_scale)
+
+        def w4(x, packed, scales, *, group, variant):
+            if x.is_cuda:
+                self.seen.add(("matmul_w4", (
+                    x.shape[0], x.shape[1], packed.shape[1], group, str(x.dtype),
+                    scales.dtype == torch.bfloat16, variant)))
+            return run_w4(x, packed, scales, group=group, variant=variant)
+
+        fa._flash_attention, mw._matmul_w4 = flash, w4
+        return self
+
+    def __exit__(self, *exc):
+        fa, mw = self._mods
+        fa._flash_attention, mw._matmul_w4 = self._runs
+
+
+def check_launched_llm_shapes(shapes):
+    """Each recorded flash_attention / matmul_w4 launch (launched_llm_shapes)
+    against its plain version at phase 7's tolerances, untimed; a launch
+    whose arguments check_flash cannot rebuild (another softmax scale, q
+    and kv segments apart) fails."""
+    dts = {"torch.bfloat16": torch.bfloat16, "torch.float32": torch.float32}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = []
+    for kernel, key in sorted(shapes, key=str):
+        if kernel == "flash_attention":
+            B, H, Hkv, S, D, dt, causal, lens, std_scale, same_segs = key
+            if not (std_scale and same_segs):
+                raise AssertionError(f"a flash launch the check cannot "
+                                     f"rebuild: {key}")
+            r = check_flash(B, H, Hkv, S, D, dts[dt], causal,
+                            None if lens is None else list(lens), gen, 0,
+                            timed=False)
+        else:
+            M, K, N, G, dt, bf16_scales, variant = key
+            r = check_w4(M, K, N, G, dts[dt], gen, 0, variant=variant,
+                         bf16_scales=bf16_scales, timed=False)
+        r["variant"] = key[-1] if kernel == "matmul_w4" else None
+        rows.append(r)
+        log(f"[tp] {kernel} at a TP launch {list(key)}: err "
+            f"{r['max_abs_err']:.3g} ok={r['ok']}")
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def save_llm_params(params) -> None:
+    """The 1B-class weights, one .npy an array, for phase 24's ranks."""
+    pdir = os.path.join(PHASE24_DIR, "llm_params")
+    os.makedirs(pdir, exist_ok=True)
+    for k, v in params.items():
+        np.save(os.path.join(pdir, k + ".npy"), v)
+
+
+def _wall_ms(fn, n=3):
+    """Median host milliseconds of `fn()` ended by a synchronize."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def tp_resnet(mesh, rank, report):
+    """24 b: ResNet-50 int8 (224 px, b8, the checked-in scales) at tp 2: the
+    rank's softmax and every int8 node's output equal to the unsharded
+    Net's on the card (int8 edges and softmax bit for bit); the launches of
+    one forward; rank 0 holds every distinct shard shape of matmul_int8 and
+    conv3x3_int8 to its plain version, bit for bit."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.graph.shape_infer import infer_shapes
+    from anakin_tpu_torch.parallel import shard_graph_params
+
+    gq = build_graph(TP_RESNET_BATCH)
+    x = np.random.default_rng(0).normal(
+        size=(TP_RESNET_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    edges = [n.outputs[0] for n in gq.nodes.values()
+             if n.op in ("conv2d_int8", "dense_int8")]
+    out_e = gq.outputs[0]
+    ref = ak.Net(gq, precision="bf16", device="cuda", tap_edges=edges)
+    want = ref.prediction({"input": x})
+    net = ak.Net(gq, precision="bf16", device="cuda", mesh=mesh,
+                 param_sharding=shard_graph_params(gq, mesh), tap_edges=edges)
+    net.prediction({"input": x})  # warm-up
+    reset_counts()
+    mesh.take_records()
+    got = net.prediction({"input": x})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    records = mesh.take_records()
+    differ = [e for e in edges + [out_e] if not torch.equal(got[e], want[e])]
+    kinds = {}
+    for k in net.forward.kinds.values():
+        kinds[k] = kinds.get(k, 0) + 1
+    res = dict(launches=counts, int8_nodes=len(edges), differ=differ,
+               kinds=kinds, softmax_equal=out_e not in differ,
+               tp_ms=_wall_ms(lambda: net.prediction({"input": x})),
+               unsharded_ms=_wall_ms(lambda: ref.prediction({"input": x})),
+               collectives=len(records),
+               collective_bytes=sum(r["result_bytes"] for r in records))
+    if rank == 0:
+        calls = kernel_calls(gq, {k: tuple(v.shape) for k, v in
+                                  infer_shapes(gq).items()}, local=net.params)
+        rows = cnn_kernel_checks(report, {"tp2": calls},
+                                 key="tp_resnet_kernel_checks", tag="tp2",
+                                 exact=True)
+        res["shard_shapes"] = len(rows)
+    return res
+
+
+def _llm_params(d):
+    """The 1B-class weights the parent wrote (memory-mapped)."""
+    pdir = os.path.join(d, "llm_params")
+    return {f[:-4]: np.load(os.path.join(pdir, f), mmap_mode="r")
+            for f in sorted(os.listdir(pdir))}
+
+
+def _first_parting(a, b):
+    n = min(len(a), len(b))
+    diff = np.nonzero(np.asarray(a[:n]) != np.asarray(b[:n]))[0]
+    return int(diff[0]) if len(diff) else (None if len(a) == len(b) else n)
+
+
+def _top2(cfg, params, packed, seq, upto):
+    """(the top-2 logit margin as a share of the largest |logit|, the two
+    top tokens) of the unsharded bf16 w4 net on seq[:upto] (one b1 prefill
+    at its bucket: the logits that chose token `upto`)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.models import build_transformer_prefill
+    from anakin_tpu_torch.quant import weight_only_quantize
+    from anakin_tpu_torch.runtime.generate import prefill_bucket
+
+    L = prefill_bucket(upto, cfg.max_seq)
+    g = weight_only_quantize(build_transformer_prefill(
+        cfg, 1, L, params, kv_cache_dtype="int8", last_token_only=True),
+        bits=4, packed=packed)
+    ids = np.zeros((1, L), np.int32)
+    ids[0, :upto] = seq[:upto]
+    row = ak.Net(g, precision="bf16", device="cuda").prediction(
+        {"input": ids, "nreal": np.array([upto], np.int32)})[
+        g.outputs[0]].float().reshape(-1)
+    top = torch.topk(row, 2)
+    return (float((top.values[0] - top.values[1]) / row.abs().max()),
+            top.indices.tolist())
+
+
+# the step checks of 24 c: (precision, layers (None: all 16), tolerance as a
+# share of the largest logit).  float32 at full depth holds the sharded
+# arithmetic (the two sum in other orders: ~1e-5 on the CPU at 16
+# layers); bf16 at the depth of phase 8's card-vs-CPU check holds LLM_TOL;
+# bf16 at full depth, the path itself (None), is held to the bf16
+# rounding of the unsharded step at the same depth on the same inputs:
+# gap = |unsharded bf16 - unsharded float32|, and the TP bf16 step must be
+# within TP_BF16_GAP[0] x gap of the unsharded bf16 step (the two are each
+# a bf16 rounding away from the float32 step) and within TP_BF16_GAP[1] x
+# gap of the float32 step (no less accurate than the unsharded bf16 step,
+# to half again)
+TP_STEP_CHECKS = (("fp32", None, 1e-3), ("bf16", 2, LLM_TOL),
+                  ("bf16", None, None))
+TP_BF16_GAP = (2.0, 1.5)
+
+
+def tp_llm(mesh, rank, d, report):
+    """24 c: the 1B-class w4 decode step (int8 KV cache, b8, distinct
+    positions) at tp 2 against the unsharded step (rank 0), as
+    TP_STEP_CHECKS says; then the TP scheduler (b8, w4, int8 KV, windows of
+    16, views off) serving TP_SCHED_LENGTHS, against the unsharded
+    scheduler's tokens (rank 0): equal, or parting only where the two
+    tokens are the unsharded net's top two and their margin is under
+    LLM_TOL (a near-tie; printed).  Every flash / matmul_w4 launch of the
+    TP runs is recorded (`res["launched"]`)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.models import (TransformerConfig,
+                                         build_transformer_decode_step)
+    from anakin_tpu_torch.parallel import MODEL_AXIS, shard_graph_params
+    from anakin_tpu_torch.parallel.mesh import Spec
+    from anakin_tpu_torch.parallel.tensor_parallel import local_block
+    from anakin_tpu_torch.quant import weight_only_quantize
+    from anakin_tpu_torch.runtime import DecodeScheduler
+
+    cfg = TransformerConfig(**LLM_CFG)
+    params = _llm_params(d)
+    packed = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    shape = (LLM_BATCH, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    caches = {f"cache_{kv}_{i}": torch.randint(
+        -127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        for i in range(cfg.layers) for kv in "kv"}
+    tok = torch.randint(0, cfg.vocab, (LLM_BATCH, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos = torch.tensor(np.minimum(np.arange(LLM_BATCH) * 287 + 40,
+                                  cfg.max_seq - 1), dtype=torch.int32,
+                       device="cuda")
+    res = {"steps": []}
+    t_steps = time.perf_counter()
+    tap = launched_llm_shapes()
+    unsharded = {}  # (precision, layers) -> the unsharded step's logits
+    for prec, layers, tol in TP_STEP_CHECKS:
+        layers = layers or cfg.layers
+        cfg_l = TransformerConfig(**dict(LLM_CFG, layers=layers))
+        t0 = time.perf_counter()
+        g = weight_only_quantize(build_transformer_decode_step(
+            cfg_l, LLM_BATCH, params, kv_cache_dtype="int8",
+            cache_update="rows"), bits=4, packed=packed)
+        cache_out = [e for n in g.nodes.values() if n.op == "mha_decode"
+                     for e in n.outputs[1:]]
+        specs = {k: Spec(None, MODEL_AXIS, None, None)
+                 if k.startswith("cache_") else Spec() for k in g.inputs}
+        net = ak.Net(g, precision=prec, device="cuda", mesh=mesh,
+                     param_sharding=shard_graph_params(g, mesh),
+                     input_shardings=specs, local_outputs=cache_out)
+        full = {k: caches[k] for k in g.inputs if k.startswith("cache_")}
+        row = dict(precision=prec, layers=layers, tolerance=tol,
+                   build_s=time.perf_counter() - t0)
+
+        def tp_step():
+            feed = {k: local_block(v, specs[k], mesh).clone()
+                    for k, v in full.items()}
+            with torch.inference_mode():
+                return net.forward(net.params, dict(feed, input=tok, pos=pos),
+                                   net.prepared)[g.outputs[0]]
+
+        with tap:
+            tp_step()  # warm-up
+        reset_counts()
+        logits = tp_step()
+        torch.cuda.synchronize()
+        row.update(launches=read_counts(), ms=_wall_ms(tp_step))
+        if (prec, layers) == ("bf16", cfg.layers):  # the path's own step
+            res.update(step_launches=row["launches"], step_ms=row["ms"],
+                       kinds={k: sum(v == k for v in net.forward.kinds.values())
+                              for k in set(net.forward.kinds.values())})
+        del net
+        if rank == 0:
+            ref = ak.Net(g, precision=prec, device="cuda")
+
+            def ref_step():
+                with torch.inference_mode():
+                    return ref.prediction(dict(
+                        {k: v.clone() for k, v in full.items()}, input=tok,
+                        pos=pos))[g.outputs[0]]
+
+            want = unsharded[prec, layers] = ref_step().float()
+            row["rel_err"] = float((logits.float() - want).abs().max()
+                                   / want.abs().max())
+            row["unsharded_ms"] = _wall_ms(ref_step)
+            del ref
+            if tol is None:  # bf16 at full depth: against the bf16 rounding
+                f32 = unsharded["fp32", layers]
+                mag = f32.abs().max()
+                gap = float((want - f32).abs().max() / mag)
+                row.update(
+                    bf16_gap=gap,
+                    tp_to_fp32=float((logits.float() - f32).abs().max() / mag),
+                    tolerance=TP_BF16_GAP[0] * gap,
+                    tolerance_to_fp32=TP_BF16_GAP[1] * gap)
+        res["steps"].append(row)
+    del caches, unsharded
+    res["steps_s"] = time.perf_counter() - t_steps
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in TP_SCHED_LENGTHS]
+    kw = dict(batch=LLM_BATCH, params=params, precision="bf16",
+              kv_cache_dtype="int8", weight_only="w4", cache_view="off",
+              fuse_window=SCHED_WINDOW, device="cuda")
+    t0 = time.perf_counter()
+    sched = DecodeScheduler(cfg, mesh=mesh, **kw)
+    res["sched_build_s"] = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with tap:
+        try:
+            if rank == 0:
+                toks = [f.result(timeout=900) for f in
+                        [sched.submit(p, max_new_tokens=TP_SCHED_NEW)
+                         for p in prompts]]
+                res["sched_s"] = time.perf_counter() - t0
+        finally:
+            sched.close(timeout=900)  # every rank's loop ends on rank 0's stop
+    torch.cuda.synchronize()
+    res.update(sched_launches=read_counts(),
+               sched_windows=sched.fused_windows_run,
+               sched_bucket_prefills=sched.bucket_prefills_run,
+               sched_disagreements=sched.token_disagreements,
+               launched=sorted(tap.seen, key=str))
+    del sched
+    if rank == 0:
+        t0 = time.perf_counter()
+        base = DecodeScheduler(cfg, **kw)
+        try:
+            want = [f.result(timeout=900) for f in
+                    [base.submit(p, max_new_tokens=TP_SCHED_NEW)
+                     for p in prompts]]
+        finally:
+            base.close()
+        del base
+        res["ref_sched_s"] = time.perf_counter() - t0
+        partings = []
+        for p, a, b in zip(prompts, toks, want):
+            i = _first_parting(a, b)
+            if i is not None:
+                margin, top2 = _top2(cfg, params, packed, b, i)
+                partings.append(dict(
+                    prompt=len(p), step=i - len(p), margin=margin, top2=top2,
+                    tp_token=int(a[i]) if i < len(a) else None,
+                    unsharded_token=int(b[i]) if i < len(b) else None))
+        res["partings"] = partings
+        res["tokens_equal"] = not partings
+    return res
+
+
+def tp_rings(mesh, rank):
+    """24 e: ring attention over the two ranks' sequence blocks against
+    plain float32 attention on one rank (rank 0), causal and not; the two
+    overlap rings against the dense product."""
+    from anakin_tpu_torch.ops.nn import full_fp32
+    from anakin_tpu_torch.parallel import ring_attention
+    from anakin_tpu_torch.parallel.overlap import (allgather_matmul,
+                                                   matmul_reducescatter)
+
+    B, H, S, D = (RING_SHAPE[k] for k in "BHSD")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device="cuda")
+               for _ in range(3))
+    i, s = mesh.axis_index("model"), S // TP_RANKS
+    blk = [t[:, :, i * s:(i + 1) * s].contiguous() for t in (q, k, v)]
+    res = {}
+    for causal in (False, True):
+        got = ring_attention(*blk, mesh, "model", causal=causal)
+        whole = mesh.all_gather(got, "model", 2)
+        res[f"ring_ms_causal_{causal}"] = _wall_ms(
+            lambda: ring_attention(*blk, mesh, "model", causal=causal))
+        if rank == 0:
+            with full_fp32():
+                sc = torch.einsum("bhqd,bhkd->bhqk", q, k) / D ** 0.5
+                if causal:
+                    t = torch.arange(S, device="cuda")
+                    sc = torch.where(t[None, :] <= t[:, None], sc, -torch.inf)
+                want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(sc, -1), v)
+            res[f"ring_err_causal_{causal}"] = float((whole - want).abs().max())
+            del sc, want
+    M, K, N = 4096, 2048, 4096
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = torch.randn((K, N), generator=gen, device="cuda")
+    m, kk = M // TP_RANKS, K // TP_RANKS
+    with full_fp32():
+        dense = x @ w
+    ag = allgather_matmul(x[i * m:(i + 1) * m], w, "model", mesh=mesh)
+    rs = matmul_reducescatter(x[:, i * kk:(i + 1) * kk].contiguous(),
+                              w[i * kk:(i + 1) * kk], "model", mesh=mesh)
+    mag = float(dense.abs().max())
+    res["allgather_rel_err"] = float((ag - dense).abs().max()) / mag
+    res["reducescatter_rel_err"] = float(
+        (rs - dense[i * m:(i + 1) * m]).abs().max()) / mag
+    res["allgather_ms"] = _wall_ms(lambda: allgather_matmul(
+        x[i * m:(i + 1) * m], w, "model", mesh=mesh))
+    with full_fp32():
+        res["dense_ms"] = _wall_ms(lambda: x @ w)
+    return res
+
+
+def tp_rank_main(rank, port, d) -> int:
+    """One rank of phase 24 (a, b, c, e): results to `d/rank<r>.json`.
+    Rank 0 also holds every flash / matmul_w4 launch of both ranks' TP
+    runs to its plain version."""
+    import torch.distributed as dist
+
+    report = {}
+    mesh, probe = _tp_mesh(rank, port)
+    out = {"rank": rank, "probe": probe}
+    t0 = time.perf_counter()
+    out["resnet"] = tp_resnet(mesh, rank, report)
+    out["resnet_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["llm"] = tp_llm(mesh, rank, d, report)
+    out["llm_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["rings"] = tp_rings(mesh, rank)
+    out["rings_s"] = time.perf_counter() - t0
+    out["kernel_checks"] = report.get("tp_resnet_kernel_checks")
+    launched = [None] * TP_RANKS
+    dist.all_gather_object(launched, out["llm"]["launched"])
+    if rank == 0:
+        t0 = time.perf_counter()
+        shapes = {k for keys in launched for k in keys}
+        out["llm_kernel_checks"] = check_launched_llm_shapes(shapes)
+        out["llm_checked"] = sorted(shapes, key=str)
+        out["llm_checks_s"] = time.perf_counter() - t0
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_pipeline(report):
+    """24 d: `PipelinedNet` of ResNet-50 int8 (b128, bf16) in 4 stages on
+    cuda:0, 2 and 4 microbatches: output equal to the Net's on each
+    microbatch, bit for bit; launches of the 4-microbatch run."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.parallel import PipelinedNet, split_graph
+
+    gq = build_graph(BATCH)
+    x = np.random.default_rng(0).normal(size=(BATCH, IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    out_e = gq.outputs[0]
+    net = ak.Net(gq, precision="bf16", device="cuda")
+    pnet = PipelinedNet(gq, ["cuda"] * 4, precision="bf16")
+    res = {"stages": [len(g.nodes) for g in split_graph(gq, 4)]}
+    for m in (2, 4):
+        mb = BATCH // m
+        want = torch.cat([net.prediction({"input": x[j * mb:(j + 1) * mb]})[
+            out_e] for j in range(m)])
+        pnet.prediction({"input": x}, microbatches=m)  # warm-up
+        if m == 4:
+            reset_counts()
+        got = pnet.prediction({"input": x}, microbatches=m)[out_e]
+        torch.cuda.synchronize()
+        if m == 4:
+            res["launches"] = read_counts()
+        res[f"equal_m{m}"] = bool(torch.equal(got, want))
+        res[f"ms_m{m}"] = _wall_ms(lambda: pnet.prediction(
+            {"input": x}, microbatches=m))
+    res["net_ms"] = _wall_ms(lambda: net.prediction({"input": x}))
+    res["equal_b128_net"] = bool(torch.equal(
+        got, net.prediction({"input": x})[out_e]))
+    report["tp_pipeline"] = res
+    return res
+
+
+def parallel_phase(report, card):
+    """Phase 24: a, b, c and e in two rank processes (this script with
+    `--tp-rank`, on the weights `save_llm_params` wrote) sharing cuda:0
+    over gloo, then d here.  Any rank that fails fails the phase.  Returns
+    {path: launches} for the kernels line."""
+    t_start = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         "--tp-port", str(port)], cwd=ROOT) for r in range(TP_RANKS)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"phase 24: a rank failed (exit codes {rcs})")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(PHASE24_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    pipe = tp_pipeline(report)
+    report["tp_ranks"] = ranks
+    r0 = ranks[0]
+    pr = r0["probe"]
+    log(f"[tp] {pr['cards']} card(s), backend {pr['backend']}: CUDA tensors "
+        f"taken for " + (", ".join(k for k, ok in pr["taken"].items() if ok)
+                         or "none")
+        + f" (probed); not probed, since gloo aborts the process on them: "
+        f"{', '.join(GLOO_CUDA_ABORTS)}; staged through pinned host memory: "
+        + (", ".join(pr["staged"]) or "none"))
+    for r in ranks:
+        rn, ll, rg = r["resnet"], r["llm"], r["rings"]
+        log(f"[tp] rank {r['rank']} ResNet-50 int8 b{TP_RESNET_BATCH} tp2: "
+            f"{rn['int8_nodes']} int8 nodes + softmax, differing from the "
+            f"unsharded Net: {rn['differ'] or 'none'}; nodes by kind "
+            f"{rn['kinds']}; launches matmul_int8 "
+            f"{rn['launches']['matmul_int8']}, conv3x3_int8 "
+            f"{rn['launches']['conv3x3_int8']}; {rn['tp_ms']:.1f} ms a "
+            f"forward against {rn['unsharded_ms']:.1f} ms unsharded "
+            f"({GLOO_LABEL}); {rn['collectives']} collectives a forward, "
+            f"{rn['collective_bytes'] / 1e6:.1f} MB of results")
+        log(f"[tp] rank {r['rank']} w4 decode step tp2 (bf16, all layers): "
+            f"matmul_w4 {ll['step_launches']['matmul_w4']} launches, "
+            f"{ll['step_ms']:.1f} ms ({GLOO_LABEL}); scheduler built in "
+            f"{ll['sched_build_s']:.1f} s: flash {ll['sched_launches']['flash_attention']}, "
+            f"matmul_w4 {ll['sched_launches']['matmul_w4']} launches, "
+            f"{ll['sched_windows']} windows, {ll['sched_bucket_prefills']} "
+            f"bucket admissions, {ll['sched_disagreements']} token "
+            f"disagreements")
+        log(f"[tp] rank {r['rank']} rings: {rg} ({GLOO_LABEL}); seconds: "
+            f"resnet {r['resnet_s']:.1f}, llm {r['llm_s']:.1f}, rings "
+            f"{r['rings_s']:.1f}")
+    ll = r0["llm"]
+    for st in ll["steps"]:
+        log(f"[tp] w4 step {st['precision']}, {st['layers']} layers, against "
+            f"the unsharded step: {st['rel_err']:.2e} of the largest logit "
+            f"(tolerance {st['tolerance']:.3g}"
+            + ("" if "bf16_gap" not in st else
+               f" = {TP_BF16_GAP[0]} x the unsharded bf16 step's gap to its "
+               f"float32 step, {st['bf16_gap']:.2e}; the TP bf16 step to the "
+               f"float32 step {st['tp_to_fp32']:.2e}, tolerance "
+               f"{st['tolerance_to_fp32']:.3g}") + f"); "
+            f"{st['ms']:.1f} ms TP, {st['unsharded_ms']:.1f} ms unsharded "
+            f"({GLOO_LABEL}), built in {st['build_s']:.1f} s")
+    log(f"[tp] scheduler partings {ll['partings'] or 'none'} "
+        f"({len(TP_SCHED_LENGTHS)} requests x {TP_SCHED_NEW} tokens in "
+        f"{ll['sched_s']:.1f} s)")
+    log(f"[tp] rank 0's LLM part: the step checks {ll['steps_s']:.1f} s, "
+        f"the TP scheduler built in {ll['sched_build_s']:.1f} s and run in "
+        f"{ll['sched_s']:.1f} s, the unsharded scheduler built and run in "
+        f"{ll['ref_sched_s']:.1f} s")
+    checks = r0["llm_kernel_checks"]
+    log(f"[tp] {len(checks)} distinct flash / matmul_w4 launches of the TP "
+        f"runs (both ranks) held to their plain versions in "
+        f"{r0['llm_checks_s']:.1f} s: "
+        f"{sum(r['ok'] for r in checks)} ok")
+    log(f"[tp] pipeline ResNet-50 int8 b{BATCH}, 4 stages of "
+        f"{pipe['stages']} nodes: m=2 {pipe['ms_m2']:.1f} ms, m=4 "
+        f"{pipe['ms_m4']:.1f} ms against the Net's {pipe['net_ms']:.1f} ms, "
+        f"wall, the input's copy included (the stages share one card: no "
+        f"scaling evidence); equal to the Net per microbatch: "
+        f"{pipe['equal_m2']}, {pipe['equal_m4']}; to the b{BATCH} forward: "
+        f"{pipe['equal_b128_net']}")
+    bad = []
+    for r in ranks:
+        rn, ll, rg = r["resnet"], r["llm"], r["rings"]
+        if rn["differ"]:
+            bad.append(f"rank {r['rank']}: TP ResNet outputs differ {rn['differ'][:4]}")
+        if rn["launches"]["matmul_int8"] != 40 or rn["launches"]["conv3x3_int8"] != 13:
+            bad.append(f"rank {r['rank']}: TP ResNet launches {rn['launches']}")
+        if ll["step_launches"]["matmul_w4"] == 0:
+            bad.append(f"rank {r['rank']}: no matmul_w4 launch in the TP step")
+        if (ll["sched_launches"]["flash_attention"] == 0
+                or ll["sched_launches"]["matmul_w4"] == 0):
+            bad.append(f"rank {r['rank']}: TP scheduler launches "
+                       f"{ll['sched_launches']}")
+        if ll["sched_windows"] == 0 or ll["sched_bucket_prefills"] == 0:
+            bad.append(f"rank {r['rank']}: TP scheduler ran no window or admission")
+        if ll["sched_disagreements"]:
+            bad.append(f"rank {r['rank']}: {ll['sched_disagreements']} token "
+                       f"disagreements between the ranks")
+        unchecked = ({str(k) for k in ll["launched"]}
+                     - {str(k) for k in r0["llm_checked"]})
+        kinds = {k[0] for k in ll["launched"]}
+        if unchecked or kinds != {"flash_attention", "matmul_w4"}:
+            bad.append(f"rank {r['rank']}: TP launches unchecked {unchecked}, "
+                       f"kernels recorded {kinds}")
+    if r0["resnet"].get("shard_shapes", 0) == 0:
+        bad.append("no shard shape checked")
+    bad += [f"{r['kernel']} {r['shape']} {r['dtype']} differs from its plain "
+            f"version at a TP launch (err {r['max_abs_err']})"
+            for r in r0["llm_kernel_checks"] if not r["ok"]]
+    ll = r0["llm"]
+    for st in ll["steps"]:
+        if not st["rel_err"] <= st["tolerance"]:
+            bad.append(f"TP w4 step ({st['precision']}, {st['layers']} "
+                       f"layers): logits {st['rel_err']} of the largest")
+        if "bf16_gap" in st and not st["tp_to_fp32"] <= st["tolerance_to_fp32"]:
+            bad.append(f"TP w4 step (bf16, {st['layers']} layers): "
+                       f"{st['tp_to_fp32']} from the float32 step, against "
+                       f"the unsharded bf16 step's {st['bf16_gap']}")
+    for p in ll["partings"]:
+        if p["margin"] >= LLM_TOL or set(p["top2"]) != {
+                p["tp_token"], p["unsharded_token"]}:
+            bad.append(f"TP scheduler tokens part other than at a near-tie "
+                       f"of the two top choices: {p}")
+    rg = r0["rings"]
+    for c in (False, True):
+        if not rg[f"ring_err_causal_{c}"] <= 1e-4:
+            bad.append(f"ring attention (causal {c}) differs by "
+                       f"{rg[f'ring_err_causal_{c}']}")
+    for r in ranks:
+        for key in ("allgather_rel_err", "reducescatter_rel_err"):
+            if not r["rings"][key] <= 1e-5:
+                bad.append(f"rank {r['rank']} {key} {r['rings'][key]}")
+    if not (pipe["equal_m2"] and pipe["equal_m4"]):
+        bad.append("PipelinedNet differs from the Net")
+    if pipe["launches"]["matmul_int8"] != 160 or pipe["launches"]["conv3x3_int8"] != 52:
+        bad.append(f"pipeline launches {pipe['launches']}")
+    if bad:
+        raise AssertionError("phase 24: " + "; ".join(bad))
+    secs = time.perf_counter() - t_start
+    report["phase24_s"] = secs
+    log(f"[tp] phase 24 in {secs:.1f} s | {card}")
+    paths = {}
+    for r in ranks:
+        paths[f"tp2 ResNet-50 int8 b{TP_RESNET_BATCH} forward, rank {r['rank']}"] = \
+            r["resnet"]["launches"]
+        paths[f"tp2 w4 decode step, rank {r['rank']}"] = r["llm"]["step_launches"]
+        paths[f"tp2 scheduler ({len(TP_SCHED_LENGTHS)} requests), rank "
+              f"{r['rank']}"] = r["llm"]["sched_launches"]
+    paths[f"pipeline ResNet-50 int8 b{BATCH}, 4 stages x 4 microbatches"] = \
+        pipe["launches"]
+    return paths
+
+
 def main(argv) -> int:
     import argparse
 
@@ -4932,10 +5623,20 @@ def main(argv) -> int:
                          "and the int8 kernels at every distinct shape of the "
                          "CNN, detection and RNN paths (no main path, so no "
                          "result line)")
+    ap.add_argument("--phase24-only", action="store_true",
+                    help="phases 1 and 24 alone: the build, then the "
+                         "parallel phase (the quick loop for parallel work; "
+                         "no result line)")
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # a phase 24 rank process
+    ap.add_argument("--tp-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs only on a GPU")
         return 1
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_port, PHASE24_DIR)
     from anakin_tpu_torch.kernels import _build
     from anakin_tpu_torch.models import TransformerConfig, make_transformer_params
 
@@ -4958,6 +5659,19 @@ def main(argv) -> int:
     # in their SASS
     for name in ("depthwise3x3_int8", "bottleneck_int8"):
         report["sass_" + name] = log_sass(built[name][0], name)
+
+    if args.phase24_only:
+        t0 = time.perf_counter()
+        save_llm_params(make_transformer_params(TransformerConfig(**LLM_CFG), 0))
+        log(f"[tp] 1B-class weights made and written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        paths = parallel_phase(report, card)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke_phase24.json"),
+                  "w") as f:
+            json.dump(dict(report, paths=paths), f, indent=1, default=str)
+        log(f"[time] phase 24 alone done at {time.perf_counter() - t_start:.0f} s")
+        return 0
 
     if args.kernels_only:
         cfg = TransformerConfig(**LLM_CFG)
@@ -5037,6 +5751,7 @@ def main(argv) -> int:
 
     # ------------------------------------------- 23 a. the Generate RPCs
     serve_llm_counts = serve_llm_phase(report, cfg, params, card)
+    save_llm_params(params)  # for phase 24's rank processes
     del params
     torch.cuda.empty_cache()
     log(f"[time] serving phase (LLM) done at "
@@ -5069,6 +5784,12 @@ def main(argv) -> int:
     io_counts["served ResNet-50 int8 (one batch)"] = dict(
         no_launches(), **serve_cnn_phase(report, card))
     io_counts["Generate RPCs (6 requests)"] = serve_llm_counts
+    log(f"[time] serving phase (CNN) done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    # ----------------------------------------------------- 24. parallelism
+    for path, counts_tp in parallel_phase(report, card).items():
+        io_counts[path] = dict(no_launches(), **counts_tp)
     log(f"[time] all phases done at {time.perf_counter() - t_start:.0f} s")
 
     kernels = summarize(results, counts, units)

@@ -902,7 +902,10 @@ def test_net_compile_on_the_cpu_equals_prediction(rng, params):
 
 @pytest.mark.parametrize("arg", ["mesh", "param_sharding", "input_shardings"])
 def test_net_refuses_sharding(params, arg):
-    with pytest.raises(NotImplementedError, match="module 9"):
+    """Sharding runs over a `parallel.Mesh` (tests/test_torch_parallel.py):
+    a mesh of another type, and a sharding without a mesh, are refused."""
+    with pytest.raises(TypeError if arg == "mesh" else ValueError,
+                       match="parallel.Mesh"):
         pt.Net(_decode_graph(params), device="cpu", **{arg: {}})
 
 

@@ -443,7 +443,8 @@ def test_device_sampling_top_k_1_is_greedy_and_batch_independent():
 
 def test_scheduler_refuses_mesh_and_needs_cuda_by_default():
     _, pc = _cfgs(max_seq=32)
-    with pytest.raises(NotImplementedError, match="module 9"):
+    # a mesh is a parallel.Mesh of ranks (tests/test_torch_parallel.py)
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         DecodeScheduler(pc, batch=1, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -451,6 +451,38 @@ def test_a_backlog_older_than_the_window_is_batched(package):
     assert b.batch_sizes_served() == want
 
 
+class _RaisingNet:
+    def prediction(self, feed):
+        raise RuntimeError("forward failed")
+
+
+@pytest.mark.parametrize("net", ["echo", "raising"])
+def test_batch_sizes_are_recorded_before_the_futures_resolve(net):
+    """ROADMAP §3 item 25: a caller that waits on every future and then
+    reads `batch_sizes_served()` sees every batch, round after round, for
+    batches that succeed and for batches that fail (the JAX batcher
+    records a size after resolving its futures)."""
+    gate = threading.Event()
+    gate.set()
+    factory = ((lambda n: _EchoNet(gate, threading.Event(), torch.from_numpy))
+               if net == "echo" else (lambda n: _RaisingNet()))
+    b = ContinuousBatcher(factory, ["x"], buckets=(1, 2, 4, 8),
+                          max_delay_ms=1.0)
+    try:
+        for r in range(50):
+            futs = [b.submit({"x": np.full((3,), float(i), np.float32)})
+                    for i in range(6)]
+            for f in futs:
+                if net == "echo":
+                    f.result(timeout=30)
+                else:
+                    with pytest.raises(RuntimeError, match="forward failed"):
+                        f.result(timeout=30)
+            assert sum(b.batch_sizes_served()) == 6 * (r + 1), r
+    finally:
+        b.shutdown()
+
+
 # ---------------------------------------------------------------- monitor
 
 def test_monitor_status_keys_equal_jax_and_cpu_counts_are_unset():
@@ -490,9 +522,19 @@ def test_server_defaults_to_cuda(tmp_path, mobilenet):
 
 
 def test_server_overlap_waits_for_the_parallelism_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP module 9"):
-        server_main(["--model-dir", str(tmp_path), "--overlap", "default",
-                     "--device", CPU])
+    """`--overlap` installs the process default of `parallel.overlap`
+    before the model loads (here a directory with no model, which then
+    raises)."""
+    from anakin_tpu_torch.parallel import overlap
+
+    try:
+        with pytest.raises(FileNotFoundError):
+            server_main(["--model-dir", str(tmp_path), "--overlap",
+                         "aggressive", "--device", CPU])
+        assert overlap.default_compiler_options() == \
+            overlap.overlap_compiler_options("aggressive")
+    finally:
+        overlap.enable_collective_overlap(None)
 
 
 # ------------------------------------------------------------------- RPC
@@ -768,6 +810,46 @@ def test_daemon_starts_serves_restarts_and_stops(tmp_path, mobilenet):
         daemon.stop()
     assert not any(daemon.alive().values())
     assert not daemon._thread.is_alive()
+
+
+def test_server_sigterm_exit_stays_within_its_bound(tmp_path, mobilenet):
+    """ROADMAP §3 item 26: a serving process ends within the sum of its
+    exit deadlines after SIGTERM (its own count), and within the daemon's
+    wait for a terminated child (the wall clock here)."""
+    from anakin_tpu_torch.serving.daemon import TERM_WAIT_S
+    from anakin_tpu_torch.serving.server import EXIT_STEPS_S
+
+    budget = sum(EXIT_STEPS_S.values())
+    assert budget <= TERM_WAIT_S / 2
+    save_model(mobilenet[0], str(tmp_path / "m"))
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "anakin_tpu_torch.serving.server",
+         "--model-dir", str(tmp_path / "m"), "--port", str(port),
+         "--buckets", "1", "--device", CPU],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        client = RpcClient(f"127.0.0.1:{port}")
+        try:
+            client.wait_ready(timeout=60)
+            client.evaluate("model", {"input": _images(62, 1)[0]})
+        finally:
+            client.close()
+        t0 = time.monotonic()
+        proc.terminate()
+        out, _ = proc.communicate(timeout=TERM_WAIT_S)
+        wall = time.monotonic() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, out
+    line = [ln for ln in out.splitlines() if "exit in" in ln]
+    assert line, out
+    took = float(line[-1].split("exit in ")[1].split(" s")[0])
+    assert took <= budget + 0.5, line
+    assert wall < TERM_WAIT_S, (wall, line)
 
 
 def test_serving_is_not_imported_by_the_package():
