@@ -59,12 +59,50 @@
 //     launch.  S is sized for about two blocks per SM (at most 8, the
 //     portable cluster size).
 //
-// bf16 x, M > 16 (w4_bf16): 64-row blocks (4 x 2 warps); a block unpacks 32
-// packed rows x 128 columns at a time into a swizzled bf16 [n][k] tile in
-// shared memory, so each unpacked tile serves 64 rows of x.  float32 x
-// (w4_f32): fp32 FMA (no TF32), one thread per column and 8 rows per block.
-// These two write float32 partials per split to a workspace that sum_splits
-// adds in a fixed order.
+// bf16 x, M > 16 (w4_wgmma, the bucket admissions: M = 8 x the bucket):
+// bounded by operations there (2 M N K over 989 TFLOP/s: 0.139 ms at M
+// 4096, K 2048, N 8192), so its design is wgmma's.  Operands swapped as in
+// w4_small: out^T = W^T x^T, with the dequantized weights wgmma's A
+// operand from registers (m64: 64 output columns a tile) and x its B
+// operand from shared memory (n128: 128 rows of x), k16 a step.
+//   * A block owns 256 columns x 128 rows of x.  Each of its two
+//     warpgroups owns 128 columns (two m64n128 accumulators, 128 float32
+//     registers a thread); both read the same x tiles.  A weight is
+//     dequantized once per 128 rows of x, in registers, never stored.
+//   * A ring of WSTAGES slots in dynamic shared memory, WSTAGES - 2 chunks
+//     ahead of the MMA, filled by TMA (one thread issues a chunk's boxes;
+//     a full mbarrier a slot counts their bytes, an empty one the warps
+//     that are done with it).  A chunk is 64 k: two x tiles of 128 rows x
+//     32 k in the 64-byte swizzle that wgmma's descriptor reads (the low-
+//     nibble k and, G/2 on, the high-nibble k), 32 packed rows x 256
+//     columns of raw bytes in the 128-byte swizzle, and the group's 256
+//     scales.  TMA zero-fills rows past M and columns past N (zero bytes
+//     and zero scales dequantize to 0).  Where N or a pointer is not 16-
+//     byte aligned, which TMA needs, every thread copies the weights and
+//     scales byte by byte instead, with a block barrier a chunk.
+//   * One ldmatrix.x4.trans a 16-column strip gives a lane its bytes of
+//     the whole chunk: packed rows 2t and 2t + 1 of each 8-row group at
+//     columns 2g and 2g + 1, which are the A fragment's rows g and g + 8
+//     (so no byte moves between lanes).  k step p (0, 1) takes the low
+//     nibbles of packed rows 16p .. 16p + 15 against x tile 0, k step 2 + p
+//     their high nibbles against x tile 1.  The dequant is w4_small's
+//     (deq2, or v1's float32 product for float32 scales).
+//   * One wgmma group a chunk (8 wgmmas), waited for only before the next
+//     chunk's dequant writes the fragment registers again: ptxas
+//     serializes every wgmma when a wgmma's input registers are written
+//     while a group is in flight (C7513), so the overlap comes from the
+//     two warpgroups taking turns (named barriers): one's group runs on
+//     the tensor cores while the other dequantizes.
+//   * Each thread stores its accumulators straight to out as float2s
+//     (every 32-byte sector whole; staging through shared memory measured
+//     slower).  A grid that would leave over half the SMs idle splits K
+//     over a cluster of up to 8 blocks, whose partial tiles are summed in
+//     rank order through distributed shared memory: deterministic, no
+//     workspace, no atomics.
+//
+// float32 x (w4_f32): fp32 FMA (no TF32), one thread per column and 8 rows
+// per block; it writes float32 partials per split to a workspace that
+// sum_splits adds in a fixed order.
 //
 // Groups that are not a multiple of 64 (w4_rows): the quantizer writes any
 // even G that divides K (G = 32, or G = K = 96), and then a 32-row chunk of
@@ -94,11 +132,13 @@
 // float32 x, or scales already in bf16, v2 equals v1 bit for bit; with
 // float32 scales and bf16 x it rounds the scale to bf16 first.
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "int8_igemm.cuh"  // swz, desc_sw128: the 128-byte swizzle wgmma reads
 
 namespace cg = cooperative_groups;
 
@@ -427,136 +467,361 @@ __global__ void __launch_bounds__(SWARPS * 32) w4_small(Args a) {
   if (splits > 1) cluster.sync();  // no block leaves while another reads its partial
 }
 
-// ------------------------------------------------------- bf16, M > 16
-constexpr int BN = 128;          // columns per block
-constexpr int CH = 32;           // packed rows per chunk (64 weight rows)
-constexpr int LDW = 2 * CH + 8;  // bf16 stride of the [n][k] tile (36 words)
-constexpr int THREADS = 256;
-constexpr int WM = 4, WN = 2;    // warps along M (16 rows each) and N
-constexpr int NT = BN / WN / 8;  // n-tiles of 8 per warp
+// ------------------------------------------------- bf16, M > 16 (wgmma)
+constexpr int WBN = 256;      // output columns a block: 2 warpgroups x 2 m64 tiles
+constexpr int WBM = 128;      // rows of x a block: the wgmma's n
+constexpr int WTHREADS = 256;
+constexpr int WSTAGES = 6;    // ring slots, WSTAGES - 2 chunks ahead
+constexpr int WXT = WBM * 64;             // an x tile: 128 rows x 32 bf16 (64-byte swizzle)
+constexpr int WWT = SCH * 128;            // a weight half: 32 packed rows x 128 columns
+constexpr int WSLOT = 2 * WXT + 2 * WWT + WBN * 4;  // + the group's scales: 25,600
+constexpr int WLDC = WBN + 4;             // float stride of the output tile
+constexpr int WRING = WSTAGES * WSLOT;
+constexpr int WSMEM = WRING + 1024 + 16 * WSTAGES;  // + alignment slack, the mbarriers
+static_assert(WSLOT % 1024 == 0 && WXT % 1024 == 0 && WWT % 1024 == 0,
+              "every tile 1 KB aligned, as the swizzles");
+static_assert(WBM * WLDC * 4 <= WRING, "the output tile fits the ring");
 
-// element offset of k-pair p (weight rows 2p, 2p+1 of the chunk) of column
-// n in the [n][k] tile: the pair index is XOR-swizzled by the column's
-// group of 8, so that both the unpacking stores (16 columns x 2 pairs per
-// warp) and the mma fragment reads (8 columns x 4 pairs) hit 32 distinct
+// byte offset of 16-byte piece h (0..15) of packed row r in a chunk's
+// weights: two 128-column halves, each [32][128] in the 128-byte swizzle
+// (TMA's SWIZZLE_128B), so the 8 rows of an ldmatrix phase hit distinct
 // banks
-__device__ __forceinline__ int wt_off(int n, int p) {
-  return n * LDW + 2 * (p ^ ((n >> 3) << 1));
+__device__ __forceinline__ int wswz(int r, int h) {
+  return (h >> 3) * WWT + r * 128 + 16 * ((h & 7) ^ (r & 7));
 }
 
-// 8 bytes of packed row `r`, columns [n, n + 8), zeros past N
-__device__ __forceinline__ uint2 load8(const Args& a, int r, int n) {
-  const int8_t* p = a.packed + (size_t)r * a.N + n;
-  if (a.vec && n + 8 <= a.N) return __ldg(reinterpret_cast<const uint2*>(p));
-  uint32_t w[2] = {0u, 0u};
+// wgmma shared-memory descriptor of a K-major tile in the 64-byte swizzle:
+// 8-row groups 512 bytes apart (SBO), layout type 2 (SWIZZLE_64B)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (32ull << 32) | (2ull << 62);
+}
+
+// wgmma m64n128k16, float32 += bf16 x bf16, A from registers (a warp's 16
+// rows in the mma.sync m16n8k16 A-fragment order), B K-major from a
+// shared-memory descriptor
+#define AK_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : AK_F8(0), AK_F8(8), AK_F8(16), AK_F8(24), AK_F8(32), AK_F8(40), AK_F8(48), AK_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef AK_F8
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (n + j < a.N)
-      w[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + j)))
-                  << (8 * (j % 4));
-  return make_uint2(w[0], w[1]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ int byte_of(uint2 v, int j) {
-  const uint32_t w = j < 4 ? v.x : v.y;
-  return static_cast<int>(static_cast<int8_t>((w >> (8 * (j % 4))) & 0xFFu));
+// mbarrier and TMA helpers (shared-memory addresses as 32-bit ints)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+// the box at (c0, c1) of a 2-D tensor map into shared memory at dst; its
+// bytes complete on bar
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap& map, int c0,
+                                       int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(bar) : "memory");
 }
 
-template <bool V2>
-__global__ void __launch_bounds__(THREADS) w4_bf16(Args a) {
-  __shared__ __align__(16) __nv_bfloat16 wt[BN * LDW];
+// The A fragment of the k step over packed rows 16p .. 16p + 15, their low
+// (sh 0) or high (sh 4) nibbles, from va, vb, a lane's ldmatrix words of
+// rows 16p .. 16p + 7 and 16p + 8 .. 16p + 15: byte 0 / 2 = rows 2t / 2t + 1
+// at column 2g (fragment row g), byte 1 / 3 the same at column 2g + 1 (row
+// g + 8).  s0, s1 (h0, h1 in bf16x2) scale the two columns.
+template <bool FAST>
+__device__ __forceinline__ void deq_frag(uint32_t (&f)[4], uint32_t va, uint32_t vb,
+                                         int sh, float s0, float s1,
+                                         __nv_bfloat162 h0, __nv_bfloat162 h1) {
+  if (FAST) {
+    f[0] = deq2(va >> sh, h0);
+    f[1] = deq2(va >> (sh + 8), h1);
+    f[2] = deq2(vb >> sh, h0);
+    f[3] = deq2(vb >> (sh + 8), h1);
+  } else {
+    f[0] = rn2(nib(va, sh) * s0, nib(va, sh + 16) * s0);
+    f[1] = rn2(nib(va, sh + 8) * s1, nib(va, sh + 24) * s1);
+    f[2] = rn2(nib(vb, sh) * s0, nib(vb, sh + 16) * s0);
+    f[3] = rn2(nib(vb, sh + 8) * s1, nib(vb, sh + 24) * s1);
+  }
+}
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * 16 * WM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / WN, wn = warp % WN;
-  const int half = a.G / 2;
-  int g0, g1;
-  split_range(a, blockIdx.z, a.splits, g0, g1);
-  const int cpg = half / CH;                 // chunks per group
-  const int c_end = (g1 - g0) * cpg;
+// FAST as for w4_small.  The grid is (column tiles, row tiles, splits), one
+// cluster of `splits` blocks per output tile.  tx: x [M, K] bf16, boxes of
+// 128 rows x 32 k; tw: packed [K/2, N] bytes, boxes of 32 rows x 128
+// columns; ts: scales [K/G, N], boxes of one row x 256 columns (tw and ts
+// only when a.vec).
+template <bool FAST>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    w4_wgmma(const Args a, const __grid_constant__ CUtensorMap tx,
+             const __grid_constant__ CUtensorMap tw,
+             const __grid_constant__ CUtensorMap ts) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // the ring, 1 KB aligned (the swizzles act on address bits), offset from
+  // the array so that its accesses stay shared-memory ones; then two
+  // mbarriers a slot: full (its TMA bytes have landed) and empty (every
+  // warp is done with it: its wgmma group waited for, its weights read)
+  uint8_t* ring = smem + ((1024 - (static_cast<uint32_t>(
+                                       __cvta_generic_to_shared(smem)) & 1023)) & 1023);
+  const uint32_t ring_addr = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const uint32_t full = ring_addr + WRING, empty = full + 8 * WSTAGES;
 
-  // loader role: packed rows 2*rp, 2*rp+1 of the chunk, columns cc..cc+7
-  const int rp = threadIdx.x / 16, cc = (threadIdx.x % 16) * 8;
-  auto packed_row = [&](int c) {
-    const int grp = g0 + c / cpg;
-    return grp * half + (c % cpg) * CH + 2 * rp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * WBN, m0 = blockIdx.y * WBM;
+  const int splits = gridDim.z;
+  const int half = a.G / 2, cpg = half / SCH;
+  const int nchunks = a.K / (2 * SCH);
+  const int c0 = (int)((long long)blockIdx.z * nchunks / splits);
+  const int nc = (int)((long long)(blockIdx.z + 1) * nchunks / splits) - c0;
+  const int sbytes = a.sbf16 ? 2 : 4;
+  // bytes a slot's mbarrier waits for: the two x tiles, and with a.vec the
+  // weights and the scales
+  const uint32_t tx_bytes = 2 * WXT + (a.vec ? 2 * WWT + WBN * sbytes : 0);
+
+  if (tid == 0) {
+    for (int i = 0; i < WSTAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, WTHREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's chunk c0 + j into slot j % WSTAGES: [x low k][x high k]
+  // [weights, two halves][scales].  Thread 0 issues the TMA copies once
+  // the slot's last chunk is released; without a.vec (N or a pointer not
+  // 16-byte aligned) every thread copies the weights and scales byte by
+  // byte, and a block barrier a chunk keeps the warps in step.
+  const int wp = tid & 15, wr = tid >> 4;  // byte-by-byte roles
+  auto issue = [&](int j) {
+    const int slot = j % WSTAGES;
+    const uint32_t st = ring_addr + slot * WSLOT;
+    const int c = c0 + j, grp = c / cpg, cc = c - grp * cpg;
+    const int klo = grp * a.G + cc * SCH;    // the chunk's first low-nibble k
+    const int prow = grp * half + cc * SCH;  // its first packed row
+    if (tid == 0) {
+      if (j >= WSTAGES) mbar_wait(empty + 8 * slot, (j / WSTAGES - 1) & 1);
+      const uint32_t bar = full + 8 * slot;
+      mbar_expect_tx(bar, tx_bytes);
+      tma_2d(st, tx, klo, m0, bar);
+      tma_2d(st + WXT, tx, klo + half, m0, bar);
+      if (a.vec) {
+        tma_2d(st + 2 * WXT, tw, n0, prow, bar);
+        tma_2d(st + 2 * WXT + WWT, tw, n0 + 128, prow, bar);
+        tma_2d(st + 2 * WXT + 2 * WWT, ts, n0, grp, bar);
+      }
+    }
+    if (!a.vec) {
+      uint8_t* sw = ring + slot * WSLOT + 2 * WXT;
+      uint8_t* ss = sw + 2 * WWT;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = wr + 16 * i, n = n0 + 16 * wp;
+        const int8_t* src = a.packed + (size_t)(prow + r) * a.N + n;
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          if (n + k < a.N)
+            w[k / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + k)))
+                        << (8 * (k % 4));
+        *reinterpret_cast<uint4*>(sw + wswz(r, wp)) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      static_assert(WBN == WTHREADS, "one scale a thread");
+      const bool ok = n0 + tid < a.N;
+      const size_t i = (size_t)grp * a.N + n0 + tid;
+      if (a.sbf16)
+        reinterpret_cast<uint16_t*>(ss)[tid] =
+            ok ? __ldg(static_cast<const uint16_t*>(a.scales) + i) : 0;
+      else
+        reinterpret_cast<float*>(ss)[tid] =
+            ok ? __ldg(static_cast<const float*>(a.scales) + i) : 0.f;
+    }
   };
 
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const int ra = m0 + wm * 16 + g, rb = ra + 8;
-
-  float acc[NT][4];
+  // zeroed before any wgmma is in flight, then written by wgmma alone
+  float acc[2][64];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  uint2 p0 = make_uint2(0, 0), p1 = p0;
-  if (c_end > 0) {
-    p0 = load8(a, packed_row(0), n0 + cc);
-    p1 = load8(a, packed_row(0) + 1, n0 + cc);
-  }
-  float sc[8];
-  int sc_group = -1;
-  for (int c = 0; c < c_end; ++c) {
-    const int grp = g0 + c / cpg;
-    if (grp != sc_group) {
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sc[j] = n0 + cc + j < a.N ? load_scale(a, grp, n0 + cc + j) : 0.f;
-        if (V2) sc[j] = __bfloat162float(__float2bfloat16_rn(sc[j]));
+    for (int i = 0; i < 64; ++i) acc[u][i] = 0.f;
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+
+  for (int s = 0; s < WSTAGES - 2 && s < nc; ++s) issue(s);
+  // this warp's 16-column strip of tile 0 (tile 1: 4 strips on), and the
+  // column of this lane's fragment row g (row g + 8: the next column)
+  const int strip = 8 * (warp >> 2) + (warp & 3);
+  const int col = 16 * strip + 2 * g;
+  for (int j = 0; j < nc; ++j) {
+    // chunk j has landed (without a.vec: after the barrier, every thread's
+    // copies too, and every warp is done with chunk j - 2, whose slot the
+    // copies below refill)
+    mbar_wait(full + 8 * (j % WSTAGES), (j / WSTAGES) & 1);
+    if (!a.vec) __syncthreads();
+    const uint8_t* sw = ring + (j % WSTAGES) * WSLOT + 2 * WXT;
+    const uint8_t* ss = sw + 2 * WWT;
+    uint32_t wv[2][4];  // [tile][8 packed rows]
+    ak::ldsm4t(wv[0], sw + wswz(lane, strip));
+    ak::ldsm4t(wv[1], sw + wswz(lane, strip + 4));
+    float s[2][2];
+    __nv_bfloat162 h[2][2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = col + 64 * u;
+      if (a.sbf16) {
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(ss + 2 * c);
+        s[u][0] = __uint_as_float(v << 16);
+        s[u][1] = __uint_as_float(v & 0xFFFF0000u);
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(ss + 4 * c);
+        s[u][0] = v.x;
+        s[u][1] = v.y;
       }
-      sc_group = grp;
+      h[u][0] = __float2bfloat162_rn(s[u][0]);  // exact for bf16 scales; v2's rounding
+      h[u][1] = __float2bfloat162_rn(s[u][1]);
     }
-    // unpack, scale in float32, round to bf16, store as [n][k] pairs
+    const uint32_t xaddr = ring_addr + (j % WSTAGES) * WSLOT;
+    // the previous chunk's wgmma group ran over the barrier and the loads
+    // above; it must be done before the fragment registers are written
+    // again (ptxas serializes every wgmma otherwise, C7513)
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int b0 = byte_of(p0, j), b1 = byte_of(p1, j);
-      *reinterpret_cast<uint32_t*>(wt + wt_off(cc + j, rp)) =
-          ak::pack_f32_bf16(w_lo<V2>(b0, sc[j]), w_lo<V2>(b1, sc[j]));
-      *reinterpret_cast<uint32_t*>(wt + wt_off(cc + j, CH / 2 + rp)) =
-          ak::pack_f32_bf16(w_hi<V2>(b0, sc[j]), w_hi<V2>(b1, sc[j]));
-    }
-    __syncthreads();
-    if (c + 1 < c_end) {  // next chunk's bytes in flight during the mma
-      p0 = load8(a, packed_row(c + 1), n0 + cc);
-      p1 = load8(a, packed_row(c + 1) + 1, n0 + cc);
-    }
-    // k-steps 0, 1: weight rows grp*G + (c % cpg)*CH + [0, 32) (low
-    // nibbles); k-steps 2, 3: the same + G/2 (high nibbles)
-    const int klo = grp * a.G + (c % cpg) * CH;
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(wv[u][i])::"memory");
+    if (j > 0 && lane == 0) mbar_arrive(empty + 8 * ((j - 1) % WSTAGES));
+    // k step 2q + p: the low (q 0) or high (q 1) nibbles of packed rows
+    // 16p .. 16p + 15, against x tile q at k 16p
+    uint32_t af[4][2][4];  // [k step][tile][fragment]
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        deq_frag<FAST>(af[ks][u], wv[u][2 * (ks & 1)], wv[u][2 * (ks & 1) + 1],
+                       4 * (ks >> 1), s[u][0], s[u][1], h[u][0], h[u][1]);
+    // the warpgroups take turns at the tensor cores: warpgroup 0 issues
+    // chunk j's group once warpgroup 1 has issued chunk j - 1's, and 1
+    // once 0 has issued chunk j's, so that one's group runs alone while
+    // the other dequantizes (named barriers 1 and 2: one side arrives, the
+    // other waits)
+    if ((warp >> 2) == 0 && j > 0)
+      asm volatile("bar.sync 1, %0;\n" ::"n"(WTHREADS) : "memory");
+    if ((warp >> 2) == 1)
+      asm volatile("bar.sync 2, %0;\n" ::"n"(WTHREADS) : "memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      const int kx = (ks < 2 ? klo + ks * 16 : klo + half + (ks - 2) * 16) + 2 * t;
-      uint32_t af[4];
-      const uint32_t* xa = reinterpret_cast<const uint32_t*>(x + (size_t)ra * a.K + kx);
-      const uint32_t* xb = reinterpret_cast<const uint32_t*>(x + (size_t)rb * a.K + kx);
-      af[0] = ra < a.M ? xa[0] : 0u;
-      af[1] = rb < a.M ? xb[0] : 0u;
-      af[2] = ra < a.M ? xa[4] : 0u;
-      af[3] = rb < a.M ? xb[4] : 0u;
+      const uint64_t db = desc_sw64(xaddr + (ks >> 1) * WXT + 32 * (ks & 1));
+      wgmma_bf16_n128(acc[0], af[ks][0], db);
+      wgmma_bf16_n128(acc[1], af[ks][1], db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if ((warp >> 2) == 0)
+      asm volatile("bar.arrive 2, %0;\n" ::"n"(WTHREADS) : "memory");
+    if ((warp >> 2) == 1 && j + 1 < nc)
+      asm volatile("bar.arrive 1, %0;\n" ::"n"(WTHREADS) : "memory");
+    if (j + WSTAGES - 2 < nc) issue(j + WSTAGES - 2);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  // acc[u][4 nb + 2 h + e]: fragment row 16 (warp % 4) + g + 8 h, that is
+  // column col + 64 u + h, and x row 8 nb + 2 t + e.  Without a split the
+  // lanes store their column pairs as they are: each 32-byte sector is
+  // written whole by one instruction
+  if (splits == 1) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = (wn * NT + nt) * 8 + g;
-        ak::mma_bf16(acc[nt], af,
-                     *reinterpret_cast<const uint32_t*>(wt + wt_off(n, ks * 8 + t)),
-                     *reinterpret_cast<const uint32_t*>(wt + wt_off(n, ks * 8 + 4 + t)));
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * nb + 2 * t + e, n = n0 + col + 64 * u;
+          if (m < a.M && n < a.N) {
+            float* o = a.out + (size_t)m * a.N + n;
+            if (a.vec) {
+              *reinterpret_cast<float2*>(o) = make_float2(acc[u][4 * nb + e], acc[u][4 * nb + 2 + e]);
+            } else {
+              o[0] = acc[u][4 * nb + e];
+              if (n + 1 < a.N) o[1] = acc[u][4 * nb + 2 + e];
+            }
+          }
+        }
+    return;
+  }
+  // split K: the partial tile goes through shared memory (the ring, free
+  // now), and each block of the cluster stores a slice of the tile's rows,
+  // summed over the splits in rank order
+  __syncthreads();
+  float* tile = reinterpret_cast<float*>(ring);  // [WBM][WLDC]
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(tile + (8 * nb + 2 * t + e) * WLDC + col + 64 * u) =
+            make_float2(acc[u][4 * nb + e], acc[u][4 * nb + 2 + e]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank();
+  const int r0 = rank * WBM / splits, r1 = (rank + 1) * WBM / splits;
+  constexpr int QPR = WBN / 4;  // float4s a row
+  for (int q = tid; q < (r1 - r0) * QPR; q += WTHREADS) {
+    const int r = r0 + q / QPR, cq = 4 * (q % QPR);
+    const int m = m0 + r, n = n0 + cq;
+    if (m >= a.M || n >= a.N) continue;
+    float4 v[MAX_SPLITS];
+#pragma unroll
+    for (int k = 0; k < MAX_SPLITS; ++k)  // all loads in flight at once
+      if (k < splits)
+        v[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(tile, k) +
+                                                r * WLDC + cq);
+    float4 sum = v[0];
+#pragma unroll
+    for (int k = 1; k < MAX_SPLITS; ++k)
+      if (k < splits) {
+        sum.x += v[k].x; sum.y += v[k].y; sum.z += v[k].z; sum.w += v[k].w;
       }
-    }
-    __syncthreads();
-  }
-
-  float* out = a.out + (size_t)blockIdx.z * a.M * a.N;
+    float* o = a.out + (size_t)m * a.N + n;
+    if (a.vec) {
+      *reinterpret_cast<float4*>(o) = sum;
+    } else {
+      const float w[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = n0 + (wn * NT + nt) * 8 + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h ? rb : ra;
-      if (row >= a.M) continue;
-      if (col < a.N) out[(size_t)row * a.N + col] = acc[nt][2 * h];
-      if (col + 1 < a.N) out[(size_t)row * a.N + col + 1] = acc[nt][2 * h + 1];
+      for (int k = 0; k < 4; ++k)
+        if (n + k < a.N) o[k] = w[k];
     }
   }
+  cluster.sync();  // no block leaves while another reads its tile
 }
 
 // ---------------------------------------------------------------- float32
@@ -564,7 +829,7 @@ constexpr int FM = 8, FTHREADS = 128;
 
 template <bool V2>
 __global__ void __launch_bounds__(FTHREADS) w4_f32(Args a) {
-  __shared__ float xs[FM][2 * CH];  // x columns of this chunk: low, high rows
+  __shared__ float xs[FM][2 * SCH];  // x columns of this chunk: low, high rows
   const int n = blockIdx.x * FTHREADS + threadIdx.x;
   const int m0 = blockIdx.y * FM;
   const int half = a.G / 2;
@@ -577,21 +842,21 @@ __global__ void __launch_bounds__(FTHREADS) w4_f32(Args a) {
   for (int i = 0; i < FM; ++i) acc[i] = 0.f;
   for (int grp = g0; grp < g1; ++grp) {
     const float s = n < a.N ? load_scale(a, grp, n) : 0.f;
-    for (int c = 0; c < half; c += CH) {
-      for (int i = threadIdx.x; i < FM * 2 * CH; i += FTHREADS) {
-        const int m = i / (2 * CH), kl = i % (2 * CH);
-        const int k = grp * a.G + c + (kl < CH ? kl : half + kl - CH);
+    for (int c = 0; c < half; c += SCH) {
+      for (int i = threadIdx.x; i < FM * 2 * SCH; i += FTHREADS) {
+        const int m = i / (2 * SCH), kl = i % (2 * SCH);
+        const int k = grp * a.G + c + (kl < SCH ? kl : half + kl - SCH);
         xs[m][kl] = m0 + m < a.M ? x[(size_t)(m0 + m) * a.K + k] : 0.f;
       }
       __syncthreads();
       if (n < a.N) {
-        for (int r = 0; r < CH; ++r) {
+        for (int r = 0; r < SCH; ++r) {
           const int p = a.packed[(size_t)(grp * half + c + r) * a.N + n];
           const float wl = w_lo<V2>(p, s);
           const float wh = w_hi<V2>(p, s);
 #pragma unroll
           for (int m = 0; m < FM; ++m)
-            acc[m] = fmaf(xs[m][CH + r], wh, fmaf(xs[m][r], wl, acc[m]));
+            acc[m] = fmaf(xs[m][SCH + r], wh, fmaf(xs[m][r], wl, acc[m]));
         }
       }
       __syncthreads();
@@ -707,26 +972,119 @@ cudaError_t launch_small(const Args& a, cudaStream_t st) {
   return cudaLaunchKernelEx(&cfg, w4_small<MT, FAST>, a);
 }
 
+// Splits of K for w4_wgmma: none while the grid fills half the SMs or
+// more; else enough blocks for about one an SM, at most one cluster's
+// worth and one 64-deep chunk a split.
+int wgmma_splits(int M, int N, int K) {
+  const long long blocks =
+      (long long)((N + WBN - 1) / WBN) * ((M + WBM - 1) / WBM);
+  const int sms = ak::sm_count();
+  if (2 * blocks > sms) return 1;
+  long long s = sms / blocks;
+  s = s > MAX_SPLITS ? MAX_SPLITS : s;
+  s = s > K / (2 * SCH) ? K / (2 * SCH) : s;
+  return s < 1 ? 1 : (int)s;
+}
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D tensor map of rows x cols elements (row stride `pitch` bytes) in
+// boxes of box_rows x box_cols, out-of-range elements read as zero.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                size_t cols, size_t rows, size_t pitch, int box_cols, int box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool FAST>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
+  const int s = wgmma_splits(a.M, a.N, a.K);
+  CUtensorMap tx, tw, ts;
+  if (!tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.x, a.K, a.M, (size_t)a.K * 2,
+                  32, WBM, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  tw = tx;  // unread without a.vec
+  ts = tx;
+  if (a.vec &&
+      (!tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.packed, a.N, a.K / 2, a.N, 128,
+                   SCH, CU_TENSOR_MAP_SWIZZLE_128B) ||
+       !tensor_map(&ts,
+                   a.sbf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                   a.scales, a.N, a.K / a.G, (size_t)a.N * (a.sbf16 ? 2 : 4), WBN, 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = ak::allow_smem<w4_wgmma<FAST>>(WSMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + WBN - 1) / WBN, (a.M + WBM - 1) / WBM, s);
+  cfg.blockDim = dim3(WTHREADS);
+  cfg.dynamicSmemBytes = WSMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, w4_wgmma<FAST>, a, tx, tw, ts);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The routes, as ak_matmul_w4_route names them.
+enum Route { ROUTE_SMALL = 0, ROUTE_WGMMA = 1, ROUTE_F32 = 2, ROUTE_ROWS = 3 };
+
+int route_of(int M, int G, int bf16) {
+  if (G % 64 != 0) return ROUTE_ROWS;
+  if (!bf16) return ROUTE_F32;
+  return M <= 16 ? ROUTE_SMALL : ROUTE_WGMMA;
+}
+
 template <bool V2>
-cudaError_t launch(const Args& a, int bf16, cudaStream_t st) {
-  if (a.G % 64 != 0) {
+cudaError_t launch(const Args& a, int bf16, int route, cudaStream_t st) {
+  // v2's scale is rounded to bf16 before its product, so bf16x2
+  // arithmetic is exact for it as for bf16 scales
+  const bool fast = V2 || a.sbf16;
+  if (route == ROUTE_SMALL) {
+    if (a.M <= 8)
+      return fast ? launch_small<1, true>(a, st) : launch_small<1, false>(a, st);
+    return fast ? launch_small<2, true>(a, st) : launch_small<2, false>(a, st);
+  }
+  if (route == ROUTE_WGMMA)
+    return fast ? launch_wgmma<true>(a, st) : launch_wgmma<false>(a, st);
+  if (route == ROUTE_ROWS) {
     dim3 grid((a.N + RTHREADS - 1) / RTHREADS, (a.M + RM - 1) / RM, a.splits);
     if (bf16)
       w4_rows<V2, true><<<grid, RTHREADS, 0, st>>>(a);
     else
       w4_rows<V2, false><<<grid, RTHREADS, 0, st>>>(a);
-    return cudaGetLastError();
-  }
-  // v2's scale is rounded to bf16 before its product, so bf16x2
-  // arithmetic is exact for it as for bf16 scales
-  const bool fast = V2 || a.sbf16;
-  if (bf16 && a.M <= 8)
-    return fast ? launch_small<1, true>(a, st) : launch_small<1, false>(a, st);
-  if (bf16 && a.M <= 16)
-    return fast ? launch_small<2, true>(a, st) : launch_small<2, false>(a, st);
-  if (bf16) {
-    dim3 grid((a.N + BN - 1) / BN, (a.M + 16 * WM - 1) / (16 * WM), a.splits);
-    w4_bf16<V2><<<grid, THREADS, 0, st>>>(a);
   } else {
     dim3 grid((a.N + FTHREADS - 1) / FTHREADS, (a.M + FM - 1) / FM, a.splits);
     w4_f32<V2><<<grid, FTHREADS, 0, st>>>(a);
@@ -736,25 +1094,43 @@ cudaError_t launch(const Args& a, int bf16, cudaStream_t st) {
 
 }  // namespace
 
+// The route a launch takes: 0 w4_small (bf16 x, M <= 16), 1 w4_wgmma (bf16
+// x, M > 16), 2 w4_f32 (float32 x), 3 w4_rows (G not a multiple of 64).
+// dtypes as for ak_matmul_w4; N and K do not choose a route.
+extern "C" int ak_matmul_w4_route(int M, int N, int K, int G, int dtypes) {
+  (void)N;
+  (void)K;
+  return route_of(M, G, dtypes & 1);
+}
+
 // Splits of K into the workspace the launch will use (the caller sizes the
-// workspace from it): 1 for bf16 x with M <= 16, whose splits are summed in
-// a cluster's shared memory.  dtypes: bit 0 set for bf16 x.
+// workspace from it): 1 for bf16 x with a group that is a multiple of 64,
+// whose splits are summed in a cluster's shared memory.  dtypes: bit 0 set
+// for bf16 x.
 extern "C" int ak_matmul_w4_splits(int M, int N, int K, int G, int dtypes) {
-  const int bf16 = dtypes & 1;
-  if (G % 64 != 0) {  // w4_rows: splits of whole 32-row chunks
+  const int route = route_of(M, G, dtypes & 1);
+  if (route == ROUTE_ROWS) {  // splits of whole 32-row chunks
     const long long blocks =
         (long long)((N + RTHREADS - 1) / RTHREADS) * ((M + RM - 1) / RM);
     const int chunks = (K / 2 + RCH - 1) / RCH;
     long long s = (8 * 132 + blocks - 1) / blocks;  // 8 blocks an SM
     return (int)(s < 1 ? 1 : (s > chunks ? chunks : s));
   }
-  if (bf16 && M <= 16) return 1;
-  const int bm = bf16 ? 16 * WM : FM;
-  const int bn = bf16 ? BN : FTHREADS;
-  const long long blocks = (long long)((N + bn - 1) / bn) * ((M + bm - 1) / bm);
+  if (route != ROUTE_F32) return 1;
+  const long long blocks =
+      (long long)((N + FTHREADS - 1) / FTHREADS) * ((M + FM - 1) / FM);
   const int ng = K / G;
   long long s = (2 * 132 + blocks - 1) / blocks;
   return (int)(s < 1 ? 1 : (s > ng ? ng : s));
+}
+
+// Splits of K the launch takes, however they are summed: in a cluster's
+// shared memory (w4_small, w4_wgmma) or through the workspace.
+extern "C" int ak_matmul_w4_kernel_splits(int M, int N, int K, int G, int dtypes) {
+  const int route = route_of(M, G, dtypes & 1);
+  if (route == ROUTE_SMALL) return small_splits(N, K, G);
+  if (route == ROUTE_WGMMA) return wgmma_splits(M, N, K);
+  return ak_matmul_w4_splits(M, N, K, G, dtypes);
 }
 
 // dtypes: bit 0 set for bf16 x (else float32), bit 1 for bf16 scales (else
@@ -767,20 +1143,20 @@ extern "C" int ak_matmul_w4(const void* x, const void* packed, const void* scale
       (splits > 1 && workspace == nullptr))
     return cudaErrorInvalidValue;
   const int bf16 = dtypes & 1, sbf16 = (dtypes >> 1) & 1;
-  const bool small = bf16 && M <= 16 && G % 64 == 0;
-  if (small && splits != 1) return cudaErrorInvalidValue;
+  const int route = route_of(M, G, bf16);
+  if ((route == ROUTE_SMALL || route == ROUTE_WGMMA) && splits != 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t align = reinterpret_cast<uintptr_t>(packed) |
                           reinterpret_cast<uintptr_t>(scales) |
                           reinterpret_cast<uintptr_t>(out);
-  // w4_small copies 16-byte pieces of a row and stores float4s; the others
-  // load 8 bytes at a time
-  const int vec = small ? (N % 16 == 0 && align % 16 == 0)
-                        : (N % 8 == 0 && reinterpret_cast<uintptr_t>(packed) % 8 == 0);
+  // w4_small and w4_wgmma copy 16-byte pieces of a row and store float4s
+  const int vec = N % 16 == 0 && align % 16 == 0;
   Args a{x, static_cast<const int8_t*>(packed), scales,
          static_cast<float*>(splits > 1 ? workspace : out), M, N, K, G, splits,
          vec ? 1 : 0, sbf16};
-  cudaError_t err = v2 ? launch<true>(a, bf16, st) : launch<false>(a, bf16, st);
+  cudaError_t err =
+      v2 ? launch<true>(a, bf16, route, st) : launch<false>(a, bf16, route, st);
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)M * N;
   const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);

@@ -22,10 +22,13 @@ unknown name.
 On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
 `csrc/matmul_w4.cu` (v1 and v2 share its routes and differ only in the
 dequant; `matmul_w4.launches` counts v1's launches, `matmul_w4.launches_v2`
-v2's); on a CPU tensor it runs `matmul_w4_plain`.  The two agree up to the
-order of the float32 sums.  Both take every group the quantizer writes:
-any even G that divides K (groups that are not a multiple of 64 take the
-kernel's simple per-row route).
+v2's, and `matmul_w4.launches_wgmma` those of either variant that take the
+wgmma route); on a CPU tensor it runs `matmul_w4_plain`.  The two agree up
+to the order of the float32 sums.  Both take every group the quantizer
+writes: any even G that divides K.  The kernel's routes (`route` names the
+one a launch takes): "small" for bf16 x with M <= 16 (the decode steps),
+"wgmma" for bf16 x with M > 16 (the bucket admissions), "f32" for float32
+x, "rows" for groups that are not a multiple of 64.
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ import torch
 
 from . import _build
 
-__all__ = ["matmul_w4", "matmul_w4_plain", "matmul_w4_op", "unpack_w4",
-           "unpack_w4_v2"]
+__all__ = ["matmul_w4", "matmul_w4_plain", "matmul_w4_op", "route",
+           "unpack_w4", "unpack_w4_v2"]
 
 VARIANTS = ("v1", "v2")
+ROUTES = ("small", "wgmma", "f32", "rows")  # by `ak_matmul_w4_route`'s code
 
 
 def unpack_w4(packed: torch.Tensor, scales: torch.Tensor, group: int,
@@ -107,12 +111,29 @@ def _check(x, packed, scales, group, variant):
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul_w4")
-    lib.ak_matmul_w4_splits.argtypes = [ctypes.c_int] * 5
-    lib.ak_matmul_w4_splits.restype = ctypes.c_int
+    for fn in (lib.ak_matmul_w4_splits, lib.ak_matmul_w4_route,
+               lib.ak_matmul_w4_kernel_splits):
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
     lib.ak_matmul_w4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.ak_matmul_w4.restype = ctypes.c_int
     return lib
+
+
+def _dtypes(x_dtype: torch.dtype, scale_dtype: torch.dtype) -> int:
+    """The kernel's dtype flags: bit 0 bf16 x, bit 1 bf16 scales."""
+    return (int(x_dtype == torch.bfloat16)
+            | 2 * int(scale_dtype == torch.bfloat16))
+
+
+def route(M: int, N: int, K: int, group: int, x_dtype: torch.dtype,
+          scale_dtype: torch.dtype):
+    """(route name, splits of K) of a kernel launch at these shapes, as
+    the built kernel chooses them (it needs the CUDA build)."""
+    lib, flags = _lib(), _dtypes(x_dtype, scale_dtype)
+    return (ROUTES[lib.ak_matmul_w4_route(M, N, K, group, flags)],
+            lib.ak_matmul_w4_kernel_splits(M, N, K, group, flags))
 
 
 def matmul_w4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
@@ -135,13 +156,12 @@ def _matmul_w4(x, packed, scales, *, group, variant):
     M, K = x.shape
     N = packed.shape[1]
     x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel reads x in 32-bit pairs
+    if x.data_ptr() % 16:  # copied in 16-byte pieces (cp.async, TMA)
         x = x.clone()
     packed = packed.contiguous()
     scales = scales.contiguous()
     lib = _lib()
-    dtypes = (int(x.dtype == torch.bfloat16)
-              | 2 * int(scales.dtype == torch.bfloat16))
+    dtypes = _dtypes(x.dtype, scales.dtype)
     splits = lib.ak_matmul_w4_splits(M, N, K, group, dtypes)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
@@ -160,10 +180,14 @@ def _matmul_w4(x, packed, scales, *, group, variant):
         matmul_w4.launches_v2 += 1
     else:
         matmul_w4.launches += 1
+    if ROUTES[lib.ak_matmul_w4_route(M, N, K, group, dtypes)] == "wgmma":
+        matmul_w4.launches_wgmma += 1
     return out
 
 
 matmul_w4.launches = 0
+matmul_w4.launches_v2 = 0
+matmul_w4.launches_wgmma = 0
 
 
 @torch.library.custom_op("anakin_tpu_torch::matmul_w4", mutates_args=())
@@ -177,4 +201,3 @@ def matmul_w4_op(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 @matmul_w4_op.register_fake
 def _(x, packed, scales, group, variant):
     return matmul_w4_plain(x, packed, scales, group=group, variant=variant)
-matmul_w4.launches_v2 = 0

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List
 
-__all__ = ["OPS", "ALIASES", "register", "get_op", "resolve_op_name"]
+__all__ = ["OPS", "ALIASES", "register", "alias", "get_op", "resolve_op_name"]
 
 # op name -> run function: (node, [tensor]) -> [tensor]
 OPS: Dict[str, Callable[..., List[Any]]] = {}
@@ -28,6 +28,12 @@ def register(name: str, *ref_names: str) -> Callable:
         return fn
 
     return deco
+
+
+def alias(our_name: str, *ref_names: str) -> None:
+    """Map reference-framework op names to op `our_name`."""
+    for ref in ref_names:
+        ALIASES[ref.lower()] = our_name
 
 
 def resolve_op_name(name: str) -> str:

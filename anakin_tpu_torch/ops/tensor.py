@@ -12,7 +12,14 @@ import torch.nn.functional as F
 
 from .registry import register
 
-__all__ = ["top_k_lower_index"]
+__all__ = ["nchw_axis_to_nhwc", "top_k_lower_index"]
+
+_NCHW_TO_NHWC = {0: 0, 1: 3, 2: 1, 3: 2}
+
+
+def nchw_axis_to_nhwc(axis: int) -> int:
+    """Translate an axis index expressed for NCHW to the NHWC equivalent."""
+    return _NCHW_TO_NHWC[axis]
 
 
 def _total_order_key(x: torch.Tensor) -> torch.Tensor:

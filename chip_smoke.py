@@ -23,7 +23,7 @@ BiLSTM text classifier, the BiGRU-CRF tagger), model IO: a ResNet-50
 `torch.nn.Module` converted, quantized, saved, loaded, exported and run
 as a loaded program, and serving: the LLM scheduler behind the Generate
 RPCs, that ResNet-50 behind a batcher, a Worker and a server process
-under the daemon.  6-10 minutes as a
+under the daemon.  6-13 minutes as a
 command on an H100 (by the host's speed), of which 35-50 s are nvcc (the int8 core's sources
 are the slowest; all sources build at once).
 Phases:
@@ -81,12 +81,18 @@ Phases:
               the quantizer writes beside 128 (32, and 96 over K = 96 and
               1920, each timed beside the G = 128 case); the shapes of
               phase 15's bucket admissions: flash at S = 768, 1024 and 1536,
-              matmul_w4 at M = 8 L for buckets 64 (whose 8192 -> 2048
-              product splits K through the workspace and `sum_splits`) and
-              1536, each row printing its split count; tolerances as
+              matmul_w4 at M = 8 L for buckets 64 to 1536 (the M > 16
+              wgmma route; bucket 64's 8192 -> 2048 product splits K in a
+              cluster), each matmul_w4 row printing its route
+              (`ak_matmul_w4_route`) and splits of K; the wgmma route's
+              edges untimed (M 17 and 130, N 1003 at M 130, K = G = 128
+              and G = 64 at M 4096, the tp-2 halves N / 2 and K / 2 at
+              buckets 64 and 512), and every bf16 row with M > 16 must
+              have taken that route; tolerances as
               each kernel's source states them; each timed beside its plain
-              version, its bound and a library call
-              (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`);
+              version, its bound (and its share of it), a library call
+              (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`)
+              and, for matmul_w4 at M > 16, dequant + `torch.matmul`;
   8. cpu/gpu  the LLM at full width and 2 layers, batch 2, 512-token prompt,
               on the card (flash prefill) and on the CPU (dense prefill):
               last-position logits and one teacher-forced w4 decode step
@@ -129,11 +135,12 @@ Phases:
               largest, greedy tokens equal wherever the top-2 gap exceeds it;
  13. kernel   matmul_w4 v2 against its plain version at the three path
               shapes (scales in bf16, as the net hands them over), float32
-              x, a prefill-sized M, float32 scales with bf16 x (where v2's
-              dequantized weights differ from v1's; the count is printed),
-              phase 7's edges of the M <= 16 route (M = 1 and 16, N =
-              1003, K = G = 128) and its groups 32 and 96; tolerance as
-              phase 7; timed beside its
+              x, a prefill-sized M in bf16 and in float32 scales, float32
+              scales with bf16 x (where v2's dequantized weights differ
+              from v1's; the count is printed), phase 7's edges of the
+              M <= 16 route (M = 1 and 16, N = 1003, K = G = 128), its
+              groups 32 and 96 and, untimed, its edges of the wgmma route;
+              tolerance as phase 7; timed beside its
               bound, its plain version, v1 on the same inputs and
               `torch._weight_int4pack_mm`;
  14. bottleneck the 12 identity blocks of phase 2's ResNet-50 b128 net (2/3/5/2
@@ -170,7 +177,9 @@ Phases:
               three of them carrying a stop token their output reaches:
               flash_attention and matmul_w4 launch (at warm-up and capture
               and in the eager bucket prefills; a replay counts nothing)
-              and nothing else; every request's tokens equal the per-step
+              and nothing else, every M > 16 launch (the admissions'
+              projections, recorded by shape) on the wgmma route (its own
+              count, `matmul_w4.launches_wgmma`); every request's tokens equal the per-step
               path's, the stopped ones up to and ending on their stop
               token; the host seconds of each graph's weight-only rewrite,
               tokens/s, ms a window step; one captured decode step
@@ -317,17 +326,25 @@ Phases:
               of the b8 graph beside the allocator's peak of a b8 forward.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
-its last line `{"ok": true, "device": {...}}`; each entry of the kernels
+its last line `{"ok": true, "device": {...}}`.  The kernels line's
+`matmul_w4_wgmma` entry is matmul_w4's M > 16 route, of either variant,
+over phase 15's counted round: its launches there, and its times summed
+over phase 7's rows at the shapes it launched.  Each entry of the kernels
 line also has `launches_by_path`, its launches in each int8 detector's
 and RNN net's forward, in the converted ResNet-50's int8 forward and in
 the loaded program's call (phase 22), in one batch of the served ResNet-50
 and in the six Generate requests (phase 23).  `--kernels-only` runs phases 1, 7 and 13 and
 phases 18, 19 and 21's kernel checks alone (no main path, so neither of
-those lines) and writes `build/chip_smoke_kernels.json`.  Any failed check raises and
+those lines) and writes `build/chip_smoke_kernels.json`; `--w4-only` runs
+phase 1, phase 7's timed matmul_w4 rows at the bucket admissions and phase
+15's admission ms per bucket (no requests served), using only what the
+port had before the wgmma route, so a copy of the script times an earlier
+tree too; `--phase24-only` runs phases 1 and 24.  Any failed check raises and
 the script exits non-zero; so does a machine without a GPU.  Details go to
 `build/chip_smoke.json` as well.
 """
 
+import collections
 import itertools
 import json
 import os
@@ -360,6 +377,9 @@ KERNEL_META = {
                           "anakin_tpu/kernels/depthwise_int8.py:171"),
     "matmul_w4_v2": ("anakin_tpu_torch/csrc/matmul_w4.cu",
                      "anakin_tpu/kernels/matmul_w4.py:75"),
+    # the M > 16 route (w4_wgmma) of both variants, on phase 15's admissions
+    "matmul_w4_wgmma": ("anakin_tpu_torch/csrc/matmul_w4.cu",
+                        "anakin_tpu/kernels/matmul_w4.py:129"),
     "bottleneck_int8": ("anakin_tpu_torch/csrc/bottleneck_int8.cu",
                         "anakin_tpu/kernels/bottleneck_int8.py:134"),
 }
@@ -713,7 +733,8 @@ def summarize(results, counts, units):
 
 def kernel_counters():
     """{kernel: (wrapper, name of its launch count)}: matmul_w4 counts its
-    two variants apart."""
+    two variants apart, and its M > 16 route's launches of either variant
+    beside them."""
     from anakin_tpu_torch.kernels import (bottleneck_int8, conv3x3_int8,
                                           depthwise3x3_int8, flash_attention,
                                           matmul_int8, matmul_w4)
@@ -724,6 +745,7 @@ def kernel_counters():
                 "bottleneck_int8": bottleneck_int8}
     counters = {k: (fn, "launches") for k, fn in counters.items()}
     counters["matmul_w4_v2"] = (matmul_w4, "launches_v2")
+    counters["matmul_w4_wgmma"] = (matmul_w4, "launches_wgmma")
     return counters
 
 
@@ -1256,6 +1278,28 @@ def _int4pack_yardstick(x, packed, scales, group):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
 
 
+def w4_route(M, K, N, G, dtype, bf16_scales):
+    """(route, splits of K) a matmul_w4 launch takes, as the kernel's
+    `ak_matmul_w4_route` names it; (None, workspace splits) for a tree
+    whose kernel names no route."""
+    import importlib
+
+    mw = importlib.import_module("anakin_tpu_torch.kernels.matmul_w4")
+    sdt = torch.bfloat16 if bf16_scales else torch.float32
+    if hasattr(mw, "route"):
+        return mw.route(M, N, K, G, dtype, sdt)
+    return None, mw._lib().ak_matmul_w4_splits(
+        M, N, K, G, int(dtype == torch.bfloat16) | 2 * int(bf16_scales))
+
+
+def w4_kernel_name(route, variant):
+    """The kernels line's entry a matmul_w4 row counts for: the M > 16
+    wgmma route has one of its own, for both variants."""
+    if route == "wgmma":
+        return "matmul_w4_wgmma"
+    return "matmul_w4_v2" if variant == "v2" else "matmul_w4"
+
+
 def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
              timed=True):
     """matmul_w4 (`variant` v1 or v2) against matmul_w4_plain on the card;
@@ -1264,6 +1308,7 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
     and any order is within K * 2^-24 * (|x| @ |W|) of the exact sum, so
     |d| <= 2 K 2^-24 (|x| @ |W|).  A v2 row also times v1 on the
     same inputs and counts the dequantized weights where the two differ.
+    Each row names the kernel's route and its splits of K (w4_route).
     `timed=False` skips the timings and the yardsticks (None)."""
     from anakin_tpu_torch.kernels.matmul_w4 import (_lib, matmul_w4,
                                                     matmul_w4_plain, unpack_w4,
@@ -1284,13 +1329,16 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
     mag = x.float().abs() @ w.float().abs()
     d = (got - want).abs()
     ok = bool((d <= 2 * K * 2.0 ** -24 * mag).all())
-    # the splits of K the launch took (> 1: through the workspace and
-    # sum_splits, except bf16 x at M <= 16, which sums in a cluster)
-    splits = _lib().ak_matmul_w4_splits(
-        M, N, K, g, int(dtype == torch.bfloat16) | 2 * int(bf16_scales))
+    # the splits of K the launch took (> 1: in a cluster's shared memory
+    # for bf16 x, through the workspace and sum_splits otherwise)
+    route, splits = w4_route(M, K, N, g, dtype, bf16_scales)
+    counted = getattr(matmul_w4, "launches_wgmma", None)
+    kernel = w4_kernel_name(route, variant)
     if not timed:
         matmul_w4.launches, matmul_w4.launches_v2 = launches
-        return dict(kernel="matmul_w4_v2" if variant == "v2" else "matmul_w4",
+        if counted is not None:
+            matmul_w4.launches_wgmma = counted
+        return dict(kernel=kernel, variant=variant, route=route,
                     shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
                     bf16_scales=bf16_scales, splits=splits, ok=ok,
                     max_abs_err=float(d.max()),
@@ -1309,6 +1357,8 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
                          iters=2 * n_copies)
         weights_differ = int((unpack_w4(packed, scales, g, dtype) != w).sum())
     matmul_w4.launches, matmul_w4.launches_v2 = launches
+    if counted is not None:
+        matmul_w4.launches_wgmma = counted
     lib, why = _int4pack_yardstick(x, packed, scales, g)
     library_ms = lib_err = None
     if lib is not None:
@@ -1337,7 +1387,7 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     bms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
-    return dict(kernel="matmul_w4_v2" if variant == "v2" else "matmul_w4",
+    return dict(kernel=kernel, variant=variant, route=route,
                 shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
                 bf16_scales=bf16_scales, splits=splits, ok=ok,
                 max_abs_err=float(d.max()), max_rel_to_mag=float((d / mag).max()),
@@ -1347,6 +1397,98 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
                 dequant_bf16_matmul_ms=dequant_mm_ms,
                 dequant_then_matmul_ms=dequant_then_mm_ms, bound_ms=bms, bound_by=by,
                 calls_per_run=calls)
+
+
+def admission_buckets(cfg):
+    """The bucket lengths phase 15's prompts (SCHED_LENGTHS) are admitted
+    at."""
+    from anakin_tpu_torch.runtime.generate import prefill_bucket
+
+    return sorted({prefill_bucket(P, cfg.max_seq) for P in SCHED_LENGTHS})
+
+
+def admission_w4_cases(cfg):
+    """matmul_w4 at phase 15's bucket admissions: M = 8 L, both MLP
+    projections, the scales in bf16 as the scheduler's prefill hands them
+    over (M > 16: the wgmma route; bucket 64's 8192 -> 2048 product is the
+    one whose grid is short enough to split K)."""
+    E, F_ = cfg.embed, 4 * cfg.embed
+    return [(LLM_BATCH * L, k, n, 128, torch.bfloat16, True, 0)
+            for L in admission_buckets(cfg) for k, n in ((E, F_), (F_, E))]
+
+
+def wgmma_edge_w4_cases(cfg):
+    """The edges of the M > 16 route, checked untimed: one row past the
+    M <= 16 route, a partial 128-row tile, a ragged and unaligned N (the
+    byte-by-byte loads), K = G = 128 (two chunks), G = 64 (one chunk a
+    group), each with bf16 and float32 scales where the dequant differs;
+    and the tensor-parallel halves (N / 2 and K / 2 of the two MLP
+    projections) at buckets 64 and 512."""
+    E, F_ = cfg.embed, 4 * cfg.embed
+    bf16 = torch.bfloat16
+    return [  # (M, K, N, G, dtype, scales in bf16, calls)
+        *[(m, E, F_, 128, bf16, bs, 0) for m in (17, 130) for bs in (True, False)],
+        (130, F_, E, 128, bf16, False, 0),
+        *[(130, E, 1003, 128, bf16, bs, 0) for bs in (True, False)],
+        (4096, 128, F_, 128, bf16, True, 0),
+        (4096, E, F_, 64, bf16, False, 0),
+        *[(LLM_BATCH * L, k, n, 128, bf16, True, 0) for L in (64, 512)
+          for k, n in ((E, F_ // 2), (F_ // 2, E))],
+    ]
+
+
+def log_w4_row(r, calls, tag="matmul_w4"):
+    """One matmul_w4 row of phases 7 and 13: its route and splits of K,
+    its error, and, where timed, its ms beside its share of the bound, its
+    plain version and its yardsticks."""
+    m, k, n, _ = r["shape"]
+    line = (f"[kernel] {tag} {m}x{k}->{n} {r['dtype']} scales "
+            f"{'bf16' if r['bf16_scales'] else 'float32'} x{calls} "
+            f"route={r['route']} splits={r['splits']} "
+            f"err={r['max_abs_err']:.3g} ({r['max_rel_to_mag']:.2g} of "
+            f"|x|@|W|) ok={r['ok']}")
+    if r["ms"] is not None:
+        lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        line += (f" ms={r['ms']:.4f} ({r['bound_ms'] / r['ms']:.1%} of the "
+                 f"bound) plain={r['plain_ms']:.3f}"
+                 + ("" if r["v1_ms"] is None else f" v1={r['v1_ms']:.4f}")
+                 + f" int4pack_mm={lib} dequantized-bf16-matmul="
+                 f"{r['dequant_bf16_matmul_ms']:.4f}"
+                 + ("" if r["dequant_then_matmul_ms"] is None else
+                    f" dequant+matmul={r['dequant_then_matmul_ms']:.4f}")
+                 + f" bound={r['bound_ms']:.4f} ({r['bound_by']})")
+        if r["weights_differ_from_v1"] is not None:
+            line += (f" weights differing from v1: "
+                     f"{r['weights_differ_from_v1']} of {k * n}")
+    log(line)
+
+
+def attach_wgmma_calls(results, wgmma_calls):
+    """Each M > 16 launch shape of phase 15's counted round (launched_llm_
+    shapes keys) sets calls_per_run on phase 7's timed row of that shape,
+    which the kernels line's matmul_w4_wgmma entry then sums; a shape
+    without a timed row fails."""
+    for (M, K, N, G, dt, bs, variant), n in wgmma_calls.items():
+        rows = [r for r in results if r["kernel"] == "matmul_w4_wgmma"
+                and r["shape"] == [M, K, N, G] and r["ms"] is not None
+                and r["dtype"] == dt.split(".")[-1] and r["bf16_scales"] == bs
+                and r["variant"] == variant]
+        if not rows:
+            raise AssertionError(f"no timed matmul_w4 row for phase 15's "
+                                 f"launch {M}x{K}->{N} G{G} {dt} {variant}")
+        rows[0]["calls_per_run"] = n
+
+
+def check_wgmma_routes(results):
+    """Every bf16 row with M > 16 and a group that is a multiple of 64 took
+    the wgmma route."""
+    wrong = [r for r in results if r["kernel"].startswith("matmul_w4")
+             and r["dtype"] == "bfloat16" and r["shape"][0] > 16
+             and r["shape"][3] % 64 == 0 and r["route"] != "wgmma"]
+    if wrong:
+        raise AssertionError(f"bf16 matmul_w4 rows with M > 16 off the wgmma "
+                             f"route: {wrong}")
 
 
 # every group the quantizer writes, beside the path's 128: 32 (K 2048), K
@@ -1442,19 +1584,15 @@ def llm_kernels(report, cfg):
         (5, E, F_, 128, bf16, False, 0),
         (B, E, 1003, 128, bf16, False, 0),
         (B, 128, F_, 128, bf16, True, 0),
+        # the M > 16 route with float32 scales (v1's float32 dequant)
         (4096, E, F_, 128, bf16, False, 0),
-        # the M > 16 route at the prefill shapes of an 8 x 512 bucket, with
-        # the scales in bf16 as the scheduler's prefill hands them over
-        (4096, E, F_, 128, bf16, True, 0),
-        (4096, F_, E, 128, bf16, True, 0),
         (B, F_, E, 128, f32, False, 0),
         (5, E, F_, 128, f32, True, 0),
         (4096, E, F_, 128, f32, False, 0),
         # the M > 16 route at the bucket admissions of phases 15 and 23,
-        # M = 8 L, scales in bf16: bucket 64 (8192 -> 2048 splits K through
-        # the workspace) to the largest, 1536 (512 is the 4096 rows above)
-        *[(LLM_BATCH * L, k, n, 128, bf16, True, 0)
-          for L in (64, 256, 768, 1024, 1536) for k, n in ((E, F_), (F_, E))],
+        # M = 8 L, scales in bf16: bucket 64 (8192 -> 2048 splits K in a
+        # cluster) to the largest, 1536; bucket 512 is M 4096
+        *admission_w4_cases(cfg),
     ] + W4_GROUP_CASES
     results = []
     for i, (b, h, hkv, s, d, dt, causal, lens, calls) in enumerate(flash_cases):
@@ -1471,29 +1609,21 @@ def llm_kernels(report, cfg):
             f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})"
             f" ({time.perf_counter() - t0:.1f} s)")
     for m, k, n, grp, dt, bs, calls in w4_cases:
-        t0 = time.perf_counter()
-        r = check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs)
-        results.append(r)
-        lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        log(f"[kernel] matmul_w4 {m}x{k}->{n} {r['dtype']} scales "
-            f"{'bf16' if bs else 'float32'} x{calls} splits={r['splits']} "
-            f"err={r['max_abs_err']:.3g} ({r['max_rel_to_mag']:.2g} of |x|@|W|) "
-            f"ok={r['ok']} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
-            f"int4pack_mm={lib} dequantized-bf16-matmul="
-            f"{r['dequant_bf16_matmul_ms']:.4f}"
-            + ("" if r["dequant_then_matmul_ms"] is None else
-               f" dequant+matmul={r['dequant_then_matmul_ms']:.4f}")
-            + f" bound={r['bound_ms']:.4f} ({r['bound_by']})"
-            f" ({time.perf_counter() - t0:.1f} s)")
+        results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs))
+        log_w4_row(results[-1], calls)
+    for m, k, n, grp, dt, bs, calls in wgmma_edge_w4_cases(cfg):
+        results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs,
+                                timed=False))
+        log_w4_row(results[-1], calls)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
-    split = [r for r in results if r["kernel"] == "matmul_w4"
+    check_wgmma_routes(results)
+    split = [r for r in results if r["kernel"].startswith("matmul_w4")
              and r["shape"][:3] == [LLM_BATCH * 64, F_, E] and r["dtype"] == "bfloat16"]
     if not split or split[0]["splits"] < 2:
-        raise AssertionError(f"bucket 64's 8192 -> 2048 product did not take "
-                             f"the split route: {split}")
+        raise AssertionError(f"bucket 64's 8192 -> 2048 product did not split "
+                             f"K: {split}")
     report["llm_kernel_configs"] = results
     return results
 
@@ -1510,6 +1640,9 @@ def w4_v2_kernels(report, cfg):
         (B, E, cfg.vocab, 128, bf16, True, NEW),
         (B, F_, E, 128, f32, False, 0),
         (4096, E, F_, 128, bf16, True, 0),
+        # v2 with float32 scales at M > 16, where its weights differ from
+        # v1's (phase 7 holds v1 at the same shape)
+        (4096, E, F_, 128, bf16, False, 0),
         (B, E, F_, 128, bf16, False, 0),
         # the edges of the M <= 16 route, as in phase 7
         (1, E, F_, 128, bf16, True, 0),
@@ -1519,20 +1652,17 @@ def w4_v2_kernels(report, cfg):
     ] + W4_GROUP_CASES
     results = []
     for m, k, n, grp, dt, bs, calls in cases:
-        r = check_w4(m, k, n, grp, dt, gen, calls, variant="v2", bf16_scales=bs)
-        results.append(r)
-        lib = ("none: " + r["library_none_reason"] if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        log(f"[kernel] matmul_w4_v2 {m}x{k}->{n} {r['dtype']} scales "
-            f"{'bf16' if bs else 'float32'} x{calls} err={r['max_abs_err']:.3g} "
-            f"({r['max_rel_to_mag']:.2g} of |x|@|W|) ok={r['ok']} "
-            f"ms={r['ms']:.4f} v1={r['v1_ms']:.4f} plain={r['plain_ms']:.3f} "
-            f"int4pack_mm={lib} bound={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"weights differing from v1: {r['weights_differ_from_v1']} of "
-            f"{k * n}")
+        results.append(check_w4(m, k, n, grp, dt, gen, calls, variant="v2",
+                                bf16_scales=bs))
+        log_w4_row(results[-1], calls, "matmul_w4_v2")
+    for m, k, n, grp, dt, bs, calls in wgmma_edge_w4_cases(cfg):
+        results.append(check_w4(m, k, n, grp, dt, gen, calls, variant="v2",
+                                bf16_scales=bs, timed=False))
+        log_w4_row(results[-1], calls, "matmul_w4_v2")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
+    check_wgmma_routes(results)
     report["w4_v2_kernel_configs"] = results
     return results
 
@@ -2380,6 +2510,67 @@ def _chunked_sampled(params, card):
                 windows=[list(k) for k in keys], top_k1_equals_greedy=True)
 
 
+ADMISSION_WINDOWS = 5  # the small buckets are the host's and spread widely
+
+
+def admission_ms(sched, card):
+    """ms of one admission of each bucket the scheduler has made (one
+    dispatch at b8, every slot real), from CUDA events: {bucket: (median,
+    min, max)} over ADMISSION_WINDOWS admissions after one warm-up."""
+    admission = {}
+    with torch.inference_mode():
+        for L, run in sorted(sched._prefill_runs.items()):
+            ids = np.zeros((LLM_BATCH, L), np.int32)
+            nreal = np.full((LLM_BATCH,), L, np.int32)
+            times = [cuda_ms(lambda: run(ids, nreal, []), iters=1,
+                             warmup=int(i == 0), windows=1)
+                     for i in range(ADMISSION_WINDOWS)]
+            admission[L] = (statistics.median(times), min(times), max(times))
+    log(f"[sched] admission ms per bucket (one dispatch, b{LLM_BATCH}, "
+        f"flash from 512; median of {ADMISSION_WINDOWS} (min-max)): "
+        + ", ".join(f"{L}: {m:.1f} ({lo:.1f}-{hi:.1f})"
+                    for L, (m, lo, hi) in admission.items())
+        + f" | {card}")
+    return admission
+
+
+def w4_admission_only(report, card):
+    """`--w4-only`: phase 7's timed matmul_w4 rows at phase 15's bucket
+    admissions, then phase 15's admission ms per bucket on a scheduler
+    built as phase 15 builds it, each bucket's admission made directly (no
+    requests served).  It uses only what the port had before the wgmma
+    route, so the same script times a checkout of an earlier tree (copy it
+    there and run it from that directory): parent and change on one card."""
+    from anakin_tpu_torch.models import TransformerConfig, make_transformer_params
+    from anakin_tpu_torch.runtime import DecodeScheduler
+
+    cfg = TransformerConfig(**LLM_CFG)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    rows = []
+    for m, k, n, grp, dt, bs, calls in admission_w4_cases(cfg):
+        rows.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs))
+        log_w4_row(rows[-1], calls)
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"kernel differs from its plain version: "
+                             f"{[r for r in rows if not r['ok']]}")
+    report["w4_admission_rows"] = rows
+    t0 = time.perf_counter()
+    params = make_transformer_params(cfg, 0)
+    sched = DecodeScheduler(cfg, batch=LLM_BATCH, params=params,
+                            precision="bf16", kv_cache_dtype="int8",
+                            weight_only="w4", cache_view="off",
+                            fuse_window=0, device="cuda")
+    try:
+        for L in admission_buckets(cfg):
+            sched._prefill_runs[L] = sched._make_prefill_run(L)
+        log(f"[sched] weights, scheduler and {len(sched._prefill_runs)} "
+            f"admissions built in {time.perf_counter() - t0:.1f} s")
+        report["admission_ms"] = admission_ms(sched, card)
+    finally:
+        sched.close()
+
+
 def scheduler_phase(report, cfg, params, card):
     """Phase 15: the port's DecodeScheduler at full width (b8, bf16, int8
     KV cache, w4, bucket admission, cache views off), one scheduler: 12
@@ -2446,28 +2637,42 @@ def scheduler_phase(report, cfg, params, card):
                                  "after their eighth")
 
         sched.fuse_window = SCHED_WINDOW
+        tap = launched_llm_shapes()
         reset_counts()
         # one request of a window's tokens: its first window captures the
         # graph that every later window replays
         t0 = time.perf_counter()
-        warm = sched.submit(prompts[0], max_new_tokens=SCHED_WINDOW + 1
-                            ).result(timeout=900)
+        with tap:
+            warm = sched.submit(prompts[0], max_new_tokens=SCHED_WINDOW + 1
+                                ).result(timeout=900)
         capture_s = time.perf_counter() - t0
         if not np.array_equal(warm, ref[0][:len(warm)]):
             raise AssertionError("the capturing request's tokens differ from "
                                  "the per-step path's")
         ph0, steps0 = dict(sched.phase_seconds), sched.steps_run
         windows0, buckets0 = sched.fused_windows_run, sched.bucket_prefills_run
-        got, wall_s = _serve(sched, prompts, stops)
+        with tap:
+            got, wall_s = _serve(sched, prompts, stops)
         counts = read_counts()
+        # the launches of the wgmma route (bf16 x, M > 16, G % 64 == 0: the
+        # bucket admissions' projections), by shape
+        wgmma_calls = {k: n for k, n in tap.w4_calls.items()
+                       if k[0] > 16 and k[4] == str(torch.bfloat16)
+                       and k[3] % 64 == 0}
         log(f"[sched] launches while serving (warm-up and capture of the "
             f"window graph, the eager bucket prefills; a replay counts "
-            f"nothing): {counts}")
+            f"nothing): {counts}; matmul_w4 at M > 16: "
+            + ", ".join(f"{k[0]}x{k[1]}->{k[2]} x{n}"
+                        for k, n in sorted(wgmma_calls.items())))
         if counts != dict(no_launches(), flash_attention=counts[
-                "flash_attention"], matmul_w4=counts["matmul_w4"]) \
-                or not counts["flash_attention"] or not counts["matmul_w4"]:
+                "flash_attention"], matmul_w4=counts["matmul_w4"],
+                matmul_w4_wgmma=counts["matmul_w4_wgmma"]) \
+                or not counts["flash_attention"] or not counts["matmul_w4"] \
+                or counts["matmul_w4_wgmma"] != sum(wgmma_calls.values()) \
+                or not counts["matmul_w4_wgmma"]:
             raise AssertionError(f"expected flash_attention and matmul_w4 "
-                                 f"launches only, got {counts}")
+                                 f"launches only, the M > 16 ones on the "
+                                 f"wgmma route, got {counts}")
         for i, (g, r) in enumerate(zip(got, ref)):
             want = r
             if i in stops:
@@ -2492,6 +2697,8 @@ def scheduler_phase(report, cfg, params, card):
         n_tok = sum(len(g) - len(p) for g, p in zip(got, prompts))
         res = dict(requests=SCHED_REQUESTS, new_tokens=SCHED_NEW,
                    window=SCHED_WINDOW, batch=LLM_BATCH, launches=counts,
+                   wgmma_calls=[[list(k), n] for k, n in
+                                sorted(wgmma_calls.items())],
                    scheduler_build_s=build_s, rewrite_s=rewrite_s,
                    capture_request_s=capture_s, tokens=n_tok, wall_s=wall_s,
                    tokens_per_s=n_tok / wall_s, per_step_wall_s=ref_s,
@@ -2514,18 +2721,8 @@ def scheduler_phase(report, cfg, params, card):
 
         res["replay_vs_eager_step"] = _replay_equals_eager(sched, cfg)
 
+        res["admission_ms"] = admission_ms(sched, card)
         with torch.inference_mode():
-            admission = {}
-            for L, run in sorted(sched._prefill_runs.items()):
-                ids = np.zeros((LLM_BATCH, L), np.int32)
-                nreal = np.full((LLM_BATCH,), L, np.int32)
-                admission[L] = cuda_ms(lambda: run(ids, nreal, []), iters=1,
-                                       warmup=1, windows=2)
-            log(f"[sched] admission ms per bucket (one dispatch, b{LLM_BATCH}, "
-                f"flash from 512): "
-                + ", ".join(f"{L}: {ms:.1f}" for L, ms in admission.items()))
-            res["admission_ms"] = admission
-
             K = SCHED_WINDOW
             run = sched._fused_runs[(False, 0)]
             feed = _window_feed(cfg, K)
@@ -2560,7 +2757,7 @@ def scheduler_phase(report, cfg, params, card):
     del sched
     res["chunked_sampled"] = _chunked_sampled(params, card)
     report["scheduler"] = res
-    return counts
+    return counts, wgmma_calls
 
 
 # ------------------------------------------------------------ speculative
@@ -4605,16 +4802,20 @@ def serve_llm_phase(report, cfg, params, card):
             or status.bytes_in_use <= 0 or status.platform != "gpu":
         raise AssertionError(f"bad device status {status}")
     if counts != dict(no_launches(), flash_attention=counts["flash_attention"],
-                      matmul_w4=counts["matmul_w4"]) \
-            or not counts["flash_attention"] or not counts["matmul_w4"]:
+                      matmul_w4=counts["matmul_w4"],
+                      matmul_w4_wgmma=counts["matmul_w4_wgmma"]) \
+            or not counts["flash_attention"] or not counts["matmul_w4"] \
+            or not counts["matmul_w4_wgmma"]:
         raise AssertionError(f"expected flash_attention and matmul_w4 "
-                             f"launches only, got {counts}")
+                             f"launches only, some on the wgmma route, got "
+                             f"{counts}")
     held = set()
     for r in report["llm_kernel_configs"]:
-        if r["kernel"] in ("flash_attention", "matmul_w4") \
-                and r["dtype"] == "bfloat16":
-            held.add((r["kernel"], tuple(r["shape"][:5 if r["kernel"] ==
-                                                    "flash_attention" else 3])))
+        if r["dtype"] == "bfloat16" and r["kernel"] in (
+                "flash_attention", "matmul_w4", "matmul_w4_wgmma"):
+            flash = r["kernel"] == "flash_attention"
+            held.add(("flash_attention" if flash else "matmul_w4",
+                      tuple(r["shape"][:5 if flash else 3])))
     launched = llm_kernel_shapes(graphs, cfg)
     unheld = sorted(launched - held)
     log(f"[serve llm] {len(launched)} distinct flash / matmul_w4 shapes in the "
@@ -4984,10 +5185,12 @@ def _tp_mesh(rank, port):
 class launched_llm_shapes:
     """Inside the block, the flash_attention and matmul_w4 launches are
     recorded (`.seen`) as the arguments check_flash and check_w4 take,
-    read from the launches' own operands, over every entry of the block."""
+    read from the launches' own operands, over every entry of the block;
+    `.w4_calls` counts the matmul_w4 launches of each."""
 
     def __init__(self):
         self.seen = set()
+        self.w4_calls = collections.Counter()
 
     def __enter__(self):
         import importlib
@@ -5013,9 +5216,10 @@ class launched_llm_shapes:
 
         def w4(x, packed, scales, *, group, variant):
             if x.is_cuda:
-                self.seen.add(("matmul_w4", (
-                    x.shape[0], x.shape[1], packed.shape[1], group, str(x.dtype),
-                    scales.dtype == torch.bfloat16, variant)))
+                key = (x.shape[0], x.shape[1], packed.shape[1], group,
+                       str(x.dtype), scales.dtype == torch.bfloat16, variant)
+                self.seen.add(("matmul_w4", key))
+                self.w4_calls[key] += 1
             return run_w4(x, packed, scales, group=group, variant=variant)
 
         fa._flash_attention, mw._matmul_w4 = flash, w4
@@ -5627,6 +5831,11 @@ def main(argv) -> int:
                     help="phases 1 and 24 alone: the build, then the "
                          "parallel phase (the quick loop for parallel work; "
                          "no result line)")
+    ap.add_argument("--w4-only", action="store_true",
+                    help="phase 1, then phase 7's timed matmul_w4 rows at "
+                         "phase 15's bucket admissions and phase 15's "
+                         "admission ms per bucket (the quick loop for the "
+                         "M > 16 route; no result line)")
     ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a phase 24 rank process
     ap.add_argument("--tp-port", type=int, default=None,
@@ -5653,7 +5862,8 @@ def main(argv) -> int:
     for name, (path, secs, out) in built.items():
         log(f"[build] {name}: {secs:.1f} s -> {os.path.relpath(path, ROOT)}")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line \
+                    or "C75" in line:  # ptxas's wgmma serialization notes
                 log(f"[build]   {line.strip()}")
     # the instructions the depthwise and fused-block kernels spend, counted
     # in their SASS
@@ -5671,6 +5881,15 @@ def main(argv) -> int:
                   "w") as f:
             json.dump(dict(report, paths=paths), f, indent=1, default=str)
         log(f"[time] phase 24 alone done at {time.perf_counter() - t_start:.0f} s")
+        return 0
+
+    if args.w4_only:
+        w4_admission_only(report, card)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with open(os.path.join(ROOT, "build", "chip_smoke_w4.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        log(f"[time] w4 rows and admissions done at "
+            f"{time.perf_counter() - t_start:.0f} s")
         return 0
 
     if args.kernels_only:
@@ -5741,7 +5960,12 @@ def main(argv) -> int:
     log(f"[time] bottleneck phase done at {time.perf_counter() - t_start:.0f} s")
 
     # ------------------------------------------------------- 15. scheduler
-    report["scheduler_launches"] = scheduler_phase(report, cfg, params, card)
+    report["scheduler_launches"], wgmma_calls = scheduler_phase(
+        report, cfg, params, card)
+    counts["matmul_w4_wgmma"] = report["scheduler_launches"]["matmul_w4_wgmma"]
+    units["matmul_w4_wgmma"] = ("phase 15's counted round (its bucket "
+                                "admissions' MLP projections)")
+    attach_wgmma_calls(results, wgmma_calls)
     log(f"[time] scheduler phase done at {time.perf_counter() - t_start:.0f} s")
 
     # ----------------------------------------------------- 16. speculative

@@ -217,7 +217,10 @@ def test_flash_attention_ragged_valid_rows(rng, interpret, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N,G", [(8, 256, 1024, 128), (5, 1024, 256, 128),
-                                     (33, 256, 520, 64), (1, 512, 512, 512)])
+                                     (33, 256, 520, 64), (1, 512, 512, 512),
+                                     # M > 16: the edges of the wgmma route
+                                     (17, 256, 520, 64), (130, 512, 264, 128),
+                                     (256, 256, 1024, 128)])
 def test_matmul_w4_plain_matches_pallas(rng, dtype, M, K, N, G):
     from anakin_tpu.quant.quantize import _w4_group_quantize
 
@@ -234,7 +237,10 @@ def test_matmul_w4_plain_matches_pallas(rng, dtype, M, K, N, G):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N,G", [(8, 256, 1024, 128), (5, 1024, 256, 128),
-                                     (33, 256, 520, 64), (1, 512, 512, 512)])
+                                     (33, 256, 520, 64), (1, 512, 512, 512),
+                                     # M > 16: the edges of the wgmma route
+                                     (17, 256, 520, 64), (130, 512, 264, 128),
+                                     (256, 256, 1024, 128)])
 def test_matmul_w4_v2_plain_matches_pallas(rng, dtype, M, K, N, G):
     """v2's plain version against the Pallas v2 kernel, float32 scales on
     both sides (so in bf16 both round the scale to bf16 first)."""
@@ -726,14 +732,34 @@ def test_kernel_sources_and_launch_counters():
     assert {"flash_attention", "matmul_w4"} <= set(_build.SOURCES)
     def counts():
         return (flash_attention.launches, matmul_w4.launches,
-                matmul_w4.launches_v2)
+                matmul_w4.launches_v2, matmul_w4.launches_wgmma)
 
     before = counts()
     flash_attention(*(torch.zeros((1, 2, 4, 32)),) * 3)
     for variant in ("v1", "v2"):
-        matmul_w4(torch.zeros((2, 128)), torch.zeros((64, 8), dtype=torch.int8),
-                  torch.ones((1, 8)), group=128, variant=variant)
+        for m in (2, 17):
+            matmul_w4(torch.zeros((m, 128), dtype=torch.bfloat16),
+                      torch.zeros((64, 8), dtype=torch.int8),
+                      torch.ones((1, 8)), group=128, variant=variant)
     assert counts() == before
+
+
+def test_matmul_w4_route_names_match_the_kernel():
+    """The wrapper's route names (`ROUTES`, indexed by the code
+    `ak_matmul_w4_route` returns) are the kernel source's `Route` enum, in
+    its order."""
+    import os
+    import re
+
+    from anakin_tpu_torch.kernels import _build
+    from anakin_tpu_torch.kernels.matmul_w4 import ROUTES
+
+    with open(os.path.join(_build.CSRC, "matmul_w4.cu")) as f:
+        enum = re.search(r"enum Route \{([^}]*)\}", f.read()).group(1)
+    codes = {name.lower(): int(code) for name, code in
+             re.findall(r"ROUTE_(\w+) = (\d+)", enum)}
+    assert [codes[r] for r in ROUTES] == list(range(len(ROUTES)))
+    assert set(codes) == set(ROUTES)
 
 
 # ------------------------------------------------------ mha_verify

@@ -63,6 +63,38 @@ def test_registry_names_equal_the_jax_package():
         assert JAX_ALIASES.get(alias, alias) == name or alias in JAX_OPS, alias
 
 
+def test_alias_resolves_as_the_jax_package(monkeypatch):
+    """`alias` maps reference names (any case) to an op as the JAX
+    package's does: `resolve_op_name` gives the same op on both sides,
+    registered names pass through, an unknown name raises on both.  Each
+    registry works on a copy of its alias table, so no name stays."""
+    import anakin_tpu.ops.registry as jax_registry
+    import anakin_tpu_torch.ops.registry as registry
+
+    monkeypatch.setattr(jax_registry, "ALIASES", dict(jax_registry.ALIASES))
+    monkeypatch.setattr(registry, "ALIASES", dict(registry.ALIASES))
+    for reg in (jax_registry, registry):
+        reg.alias("conv2d", "MyConvRef", "other_conv_ref")
+    for name in ("MyConvRef", "myconvref", "OTHER_CONV_REF", "convolution",
+                 "Pooling"):
+        assert registry.resolve_op_name(name) == \
+            jax_registry.resolve_op_name(name)
+    assert registry.resolve_op_name("MyConvRef") == "conv2d"
+    for reg in (jax_registry, registry):
+        with pytest.raises(KeyError):
+            reg.resolve_op_name("no_such_ref")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, 3])
+def test_nchw_axis_to_nhwc_matches_jax(axis):
+    """The NCHW -> NHWC axis map, each of the four axes, against the JAX
+    package's."""
+    from anakin_tpu.ops.tensor import nchw_axis_to_nhwc as jax_nchw_to_nhwc
+    from anakin_tpu_torch.ops.tensor import nchw_axis_to_nhwc
+
+    assert nchw_axis_to_nhwc(axis) == jax_nchw_to_nhwc(axis)
+
+
 # ------------------------------------------------------------ tensor ops
 
 
