@@ -12,7 +12,8 @@
 // H / Hkv times), segment ids [B, Sq] and [B, Sk] int32 or null, all
 // contiguous; bf16 or float32.  Head dims D: 32, 64, 80, 96, 128 and 256
 // in bf16 (256 with one 16-row tile a warp and 32-key tiles, for
-// registers), the same but 256 in float32.
+// registers), the same but 256 in float32 (its 16 x 256 float32 q tile and
+// accumulator a warp would not fit beside the split).
 //
 // Replaces the TPU kernel anakin_tpu/kernels/flash_attention.py::
 // flash_attention, whose grid walks (batch * head, q tile, kv tile) with the
@@ -67,10 +68,42 @@
 // stated tolerance against the plain version, |diff| <= 2^-7 |want| + 3e-5
 // max|v|, one bf16 ulp.
 //
-// float32 (flash_f32): fp32 FMA (no TF32), 4 threads per query row, 32 rows
-// and kv tiles of 16 keys per block, p staged in shared memory.  Stated
-// tolerance: |diff| <= 3e-5 max|v| (float32 sums in another order).  No
-// path of the port runs it.
+// float32 (flash_tf32): float32 operands on the tensor cores, kept float32
+// by a split.  Each operand x becomes hi, x rounded to TF32 (11 significant
+// bits, nearest with ties away from zero, as cvt.rna), and lo = x - hi,
+// which the MMA reads truncated to TF32, so hi + lo keeps about 22 bits;
+// each product is three mma.sync m16n8k8 TF32 products into one float32
+// accumulator: lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b, about 2^-22 of
+// the product, is dropped).  Both q k^T and P V are split so: one TF32 pass
+// misses the tolerance below 3-11 times over, the split stays 100 times
+// inside it (tests/test_torch_flash_split.py emulates both; on the card the
+// error is a few times the emulation's, which leaves out the tensor cores'
+// own float32 accumulation, and stays within 5% of the tolerance).  The
+// block is flash_bf16's: 4 warps of one or two 16-row tiles (the launch
+// picks as for bf16), two query heads a block where a kv head serves an
+// even number, causal q tiles heaviest first, a 2-stage cp.async K/V ring,
+// masks only on diagonal, ragged or segment tiles, ex2 on scores in log2
+// units, the accumulator rescaled only when a row's max moved.  kv tiles
+// of 32 keys (16 with two row tiles at D > 64, for shared memory: two
+// blocks an SM).
+//   * Rows are float32, padded to D + 4: ldmatrix on 32-bit words hands
+//     each lane word t of row g of an 8 x 4 matrix, the TF32 fragment, so
+//     q and K fragments come from ldmatrix.x4 (8 rows at an odd number of
+//     16-byte units apart: no bank conflict), and V's, read across rows
+//     for P V's B operand, from 32-bit loads on distinct banks.
+//   * P V's k index is permuted (k t is key 2t, k t+4 key 2t+1), so P's A
+//     fragment is the thread's own S fragment: no shuffle.
+//   * q is split from shared memory on each kv tile (its hi / lo for the
+//     whole loop would take 128 registers a row tile at D = 128).
+//   * The split is integer and float work (split_tf32), the most of the
+//     loop's instructions beside the MMAs: every warp splits the whole K
+//     and V tile it reads.
+// What bounds it: 3 x 4 D operations an unmasked (row, col) pair at the
+// TF32 tensor-core rate (495 TFLOP/s); at the path's shapes (S 512 and
+// 2048, D 128) these, not the bytes.
+// Stated tolerance against the plain version: |diff| <= 3e-5 max|v|
+// (float32 sums in another order and the split's 2^-21 of each product).
+// Single-pass TF32 is not this route: it is not float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,6 +174,96 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// One kv tile of a warp's MQ row tiles, after S = q k^T: scale S into log2
+// units (sm_scale * log2 e), mask it where the tile crosses the warp's
+// diagonal, runs past Sk or has segment ids, update the running max m and
+// sum l of this thread's rows (g and g + 8 of each row tile), turn S into P
+// in place, and rescale the accumulator o where some row's max moved.
+template <int D, int MQ, int FBK>
+__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[MQ][FBK / 8][4],
+                                             float (&o)[MQ][D / 8][4], float (&m)[MQ][2],
+                                             float (&l)[MQ][2], int wr0, int key0, int b,
+                                             const int* kseg_s) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float sc = a.sm_scale * kLog2e;
+  const bool masked = (a.causal && key0 + FBK - 1 > wr0) || key0 + FBK > a.Sk ||
+                      a.qseg != nullptr;
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (masked) {
+      const int r0 = wr0 + 16 * mq + g;  // this thread's rows: r0, r0 + 8
+      int qs[2] = {0, 0};
+      if (a.qseg != nullptr) {
+        if (r0 < a.Sq) qs[0] = a.qseg[(size_t)b * a.Sq + r0];
+        if (r0 + 8 < a.Sq) qs[1] = a.qseg[(size_t)b * a.Sq + r0 + 8];
+      }
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cit = nt * 8 + 2 * t + (e & 1);
+          const int hi = e >> 1;
+          s[mq][nt][e] = mask_score(a, s[mq][nt][e] * sc, r0 + 8 * hi, key0 + cit,
+                                    qs[hi], kseg_s, cit);
+          if (hi) mx1 = fmaxf(mx1, s[mq][nt][e]); else mx0 = fmaxf(mx0, s[mq][nt][e]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[mq][nt][0], s[mq][nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mq][nt][2], s[mq][nt][3]));
+      }
+      mx0 *= sc;
+      mx1 *= sc;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m[mq][0], mx0), mn1 = fmaxf(m[mq][1], mx1);
+    const float al0 = ex2(m[mq][0] - mn0), al1 = ex2(m[mq][1] - mn1);
+    m[mq][0] = mn0;
+    m[mq][1] = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < FBK / 8; ++nt) {
+      if (masked) {
+        s[mq][nt][0] = ex2(s[mq][nt][0] - mn0);
+        s[mq][nt][1] = ex2(s[mq][nt][1] - mn0);
+        s[mq][nt][2] = ex2(s[mq][nt][2] - mn1);
+        s[mq][nt][3] = ex2(s[mq][nt][3] - mn1);
+      } else {
+        s[mq][nt][0] = ex2(fmaf(s[mq][nt][0], sc, -mn0));
+        s[mq][nt][1] = ex2(fmaf(s[mq][nt][1], sc, -mn0));
+        s[mq][nt][2] = ex2(fmaf(s[mq][nt][2], sc, -mn1));
+        s[mq][nt][3] = ex2(fmaf(s[mq][nt][3], sc, -mn1));
+      }
+      sum0 += s[mq][nt][0] + s[mq][nt][1];
+      sum1 += s[mq][nt][2] + s[mq][nt][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    l[mq][0] = al0 * l[mq][0] + sum0;
+    l[mq][1] = al1 * l[mq][1] + sum1;
+    // acc = acc * alpha, skipped where no row's max moved
+    if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[mq][dt][0] *= al0;
+        o[mq][dt][1] *= al0;
+        o[mq][dt][2] *= al1;
+        o[mq][dt][3] *= al1;
+      }
+    }
+  }
 }
 
 // hpb: query heads per block (1 or 2).  Grid: (B * Hkv * (H / Hkv) / hpb,
@@ -216,7 +339,6 @@ __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
   float m[MQ][2], l[MQ][2];
 #pragma unroll
   for (int mq = 0; mq < MQ; ++mq) m[mq][0] = m[mq][1] = -INFINITY, l[mq][0] = l[mq][1] = 0.f;
-  const float sc = a.sm_scale * kLog2e;
   const __nv_bfloat16* qw = qsm + warp * WR * LD;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -261,86 +383,8 @@ __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
       }
     }
 
-    // scale into log2 units, mask where needed, running max
-    const bool masked = (a.causal && key0 + FBK - 1 > wr0) || key0 + FBK > a.Sk ||
-                        a.qseg != nullptr;
-    float al[MQ][2];
-#pragma unroll
-    for (int mq = 0; mq < MQ; ++mq) {
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-      if (masked) {
-        const int* kseg_s = ksg + slot * FBK;
-        const int r0 = wr0 + 16 * mq + g;  // this thread's rows: r0, r0 + 8
-        int qs[2] = {0, 0};
-        if (a.qseg != nullptr) {
-          if (r0 < a.Sq) qs[0] = a.qseg[(size_t)b * a.Sq + r0];
-          if (r0 + 8 < a.Sq) qs[1] = a.qseg[(size_t)b * a.Sq + r0 + 8];
-        }
-#pragma unroll
-        for (int nt = 0; nt < FBK / 8; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int cit = nt * 8 + 2 * t + (e & 1);
-            const int hi = e >> 1;
-            s[mq][nt][e] = mask_score(a, s[mq][nt][e] * sc, r0 + 8 * hi, key0 + cit,
-                                      qs[hi], kseg_s, cit);
-            if (hi) mx1 = fmaxf(mx1, s[mq][nt][e]); else mx0 = fmaxf(mx0, s[mq][nt][e]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int nt = 0; nt < FBK / 8; ++nt) {
-          mx0 = fmaxf(mx0, fmaxf(s[mq][nt][0], s[mq][nt][1]));
-          mx1 = fmaxf(mx1, fmaxf(s[mq][nt][2], s[mq][nt][3]));
-        }
-        mx0 *= sc;
-        mx1 *= sc;
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m[mq][0], mx0), mn1 = fmaxf(m[mq][1], mx1);
-      al[mq][0] = ex2(m[mq][0] - mn0);
-      al[mq][1] = ex2(m[mq][1] - mn1);
-      m[mq][0] = mn0;
-      m[mq][1] = mn1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < FBK / 8; ++nt) {
-        if (masked) {
-          s[mq][nt][0] = ex2(s[mq][nt][0] - mn0);
-          s[mq][nt][1] = ex2(s[mq][nt][1] - mn0);
-          s[mq][nt][2] = ex2(s[mq][nt][2] - mn1);
-          s[mq][nt][3] = ex2(s[mq][nt][3] - mn1);
-        } else {
-          s[mq][nt][0] = ex2(fmaf(s[mq][nt][0], sc, -mn0));
-          s[mq][nt][1] = ex2(fmaf(s[mq][nt][1], sc, -mn0));
-          s[mq][nt][2] = ex2(fmaf(s[mq][nt][2], sc, -mn1));
-          s[mq][nt][3] = ex2(fmaf(s[mq][nt][3], sc, -mn1));
-        }
-        sum0 += s[mq][nt][0] + s[mq][nt][1];
-        sum1 += s[mq][nt][2] + s[mq][nt][3];
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-      }
-      l[mq][0] = al[mq][0] * l[mq][0] + sum0;
-      l[mq][1] = al[mq][1] * l[mq][1] + sum1;
-      // acc = acc * alpha, skipped where no row's max moved
-      if (__any_sync(0xffffffffu, al[mq][0] != 1.f || al[mq][1] != 1.f)) {
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          o[mq][dt][0] *= al[mq][0];
-          o[mq][dt][1] *= al[mq][0];
-          o[mq][dt][2] *= al[mq][1];
-          o[mq][dt][3] *= al[mq][1];
-        }
-      }
-    }
+    // scale into log2 units, mask where needed, running max and sum, P
+    softmax_tile<D, MQ, FBK>(a, s, o, m, l, wr0, key0, b, ksg + slot * FBK);
 
     // acc += P @ V, P split into bf16 hi + lo; ldmatrix.trans matrices:
     // (keys 16kk.., d 8dt..), (keys 16kk+8.., d 8dt..), the same at dt + 1
@@ -390,99 +434,219 @@ __global__ void __launch_bounds__(FW * 32) flash_bf16(Args a, int hpb) {
 }
 
 // ---------------------------------------------------------------- float32
-constexpr int FQ = 32, FK = 16, FTHREADS = 128;  // 4 threads per query row
+// The float32 route keeps flash_bf16's block, ring and schedule; its tiles
+// are float32 rows (D + 4 floats: 16 bytes of padding) and its products are
+// split-TF32 mma.sync m16n8k8, three a product.
+__host__ __device__ constexpr int tf32_kv_block(int d, int mq) {
+  return mq == 2 && d > 64 ? 16 : 32;
+}
 
-template <int D>
-__global__ void __launch_bounds__(FTHREADS) flash_f32(Args a) {
-  __shared__ float qs_[FQ * (D + 1)];
-  __shared__ float ks[FK * (D + 1)];
-  __shared__ float vs[FK * D];
-  __shared__ float ps[FQ * (FK + 1)];
-  __shared__ int kseg_s[FK];
+template <int D, int MQ>
+constexpr int tf32_smem() {
+  return (FSTAGES * (2 * tf32_kv_block(D, MQ) * (D + 4) + tf32_kv_block(D, MQ)) +
+          FW * 16 * MQ * (D + 4)) * 4;
+}
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int hk = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.y * FQ;
-  const int rl = threadIdx.x / 4, t = threadIdx.x % 4, row = q0 + rl;
-  const float* q = static_cast<const float*>(a.q) + (size_t)bh * a.Sq * D;
-  const float* kg = static_cast<const float*>(a.k) +
-                    ((size_t)b * a.Hkv + hk) * a.Sk * D;
-  const float* vg = static_cast<const float*>(a.v) +
-                    ((size_t)b * a.Hkv + hk) * a.Sk * D;
+// x = hi + lo, both TF32 as the tensor core reads a register: it ignores
+// the low 13 bits.  hi is x's bits plus half a TF32 ulp, so the MMA sees x
+// rounded to nearest with ties away from zero (cvt.rna.tf32's value); lo is
+// x minus that value, exact in float32, which the MMA truncates to 11
+// significant bits (about 2^-22 of x).  Three instructions where
+// cvt.rna.tf32.f32 alone compiles to five.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
 
-  for (int i = threadIdx.x; i < FQ * D; i += FTHREADS) {
-    const int r = i / D, c = i % D;
-    qs_[r * (D + 1) + c] = q0 + r < a.Sq ? q[(size_t)(q0 + r) * D + c] : 0.f;
+// c += a b on TF32 operands (m16n8k8, float32 accumulation).  Fragments
+// (g = lane / 4, t = lane % 4): a[0] (row g, k t), a[1] (row g+8, k t),
+// a[2] (row g, k t+4), a[3] (row g+8, k t+4); b0 (k t, col g), b1 (k t+4,
+// col g); c as in mma_bf16
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += (ah + al)(bh + bl) but for al bl: the three-product split
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// As flash_bf16, on float32 q, k, v and out.
+template <int D, int MQ>
+__global__ void __launch_bounds__(FW * 32) flash_tf32(Args a, int hpb) {
+  constexpr int LD = D + 4;    // float row stride: 16 bytes of padding
+  constexpr int WR = 16 * MQ;  // query rows per warp
+  constexpr int FBK = tf32_kv_block(D, MQ);
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [FSTAGES][FBK][LD]
+  float* vs = ks + FSTAGES * FBK * LD;
+  float* qsm = vs + FSTAGES * FBK * LD;        // [FW][WR][LD]
+  int* ksg = reinterpret_cast<int*>(qsm + FW * WR * LD);  // [FSTAGES][FBK]
+
+  const int R = a.H / a.Hkv, groups = R / hpb, bq = block_rows(MQ) / hpb;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int hg = blockIdx.x % groups, hk = (blockIdx.x / groups) % a.Hkv;
+  const int b = blockIdx.x / (groups * a.Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wph = FW / hpb;  // warps per head
+  const int h = hk * R + hg * hpb + warp / wph;
+  const int q0 = qt * bq, wr0 = q0 + (warp % wph) * WR;
+  const float* q = static_cast<const float*>(a.q) + ((size_t)b * a.H + h) * a.Sq * D;
+  const float* kg = static_cast<const float*>(a.k) + ((size_t)b * a.Hkv + hk) * a.Sk * D;
+  const float* vg = static_cast<const float*>(a.v) + ((size_t)b * a.Hkv + hk) * a.Sk * D;
+
+  const int n_tiles = kv_tiles(a, q0, bq, FBK);
+  const int w_tiles = wr0 < a.Sq ? kv_tiles(a, wr0, WR, FBK) : 0;
+
+  {  // this warp's rows of q, rows past Sq zero: the oldest cp.async group
+    float* qd = qsm + warp * WR * LD;
+    for (int c = lane; c < WR * D / 4; c += 32) {
+      const int r = c / (D / 4), cc = (c % (D / 4)) * 4;
+      const bool ok = wr0 + r < a.Sq;
+      ak::cp16(qd + r * LD + cc, q + (ok ? (size_t)(wr0 + r) * D + cc : 0), ok);
+    }
+    ak::cp_commit();
   }
-  const int qsg = (a.qseg != nullptr && row < a.Sq) ? a.qseg[(size_t)b * a.Sq + row] : 0;
-
-  float acc[D / 4];
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const int key0 = j * FBK, slot = j % FSTAGES;
+      float* kd = ks + slot * FBK * LD;
+      float* vd = vs + slot * FBK * LD;
+      for (int c = threadIdx.x; c < FBK * D / 4; c += FW * 32) {
+        const int r = c / (D / 4), cc = (c % (D / 4)) * 4;
+        const bool ok = key0 + r < a.Sk;
+        const size_t off = ok ? (size_t)(key0 + r) * D + cc : 0;
+        ak::cp16(kd + r * LD + cc, kg + off, ok);
+        ak::cp16(vd + r * LD + cc, vg + off, ok);
+      }
+      if (a.kseg != nullptr && threadIdx.x < FBK)
+        ksg[slot * FBK + threadIdx.x] =
+            key0 + (int)threadIdx.x < a.Sk ? a.kseg[(size_t)b * a.Sk + key0 + threadIdx.x] : 0;
+    }
+    ak::cp_commit();
+  };
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < FSTAGES - 1; ++j) issue(j);
 
-  const int n_tiles = kv_tiles(a, q0, FQ, FK);
+  float o[MQ][D / 8][4];
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) o[mq][i][0] = o[mq][i][1] = o[mq][i][2] = o[mq][i][3] = 0.f;
+  // running max (in units of sm_scale * log2 e) and sum of each row
+  float m[MQ][2], l[MQ][2];
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq) m[mq][0] = m[mq][1] = -INFINITY, l[mq][0] = l[mq][1] = 0.f;
+  const float* qw = qsm + warp * WR * LD;
+
   for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * FK;
-    for (int i = threadIdx.x; i < FK * D; i += FTHREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = key0 + r < a.Sk;
-      ks[r * (D + 1) + c] = in ? kg[(size_t)(key0 + r) * D + c] : 0.f;
-      vs[r * D + c] = in ? vg[(size_t)(key0 + r) * D + c] : 0.f;
-    }
-    if (a.kseg != nullptr && threadIdx.x < FK)
-      kseg_s[threadIdx.x] = key0 + threadIdx.x < a.Sk
-                                ? a.kseg[(size_t)b * a.Sk + key0 + threadIdx.x]
-                                : 0;
-    __syncthreads();
+    ak::cp_wait<FSTAGES - 2>();
+    __syncthreads();  // tile j (and q) is in; every warp is done with tile j - 1
+    issue(j + FSTAGES - 1);
+    if (j >= w_tiles) continue;  // past this warp's diagonal
+    const int key0 = j * FBK, slot = j % FSTAGES;
+    const float* kt = ks + slot * FBK * LD;
+    const float* vt = vs + slot * FBK * LD;
 
-    // this thread's keys: t, t + 4, t + 8, t + 12 of the tile
-    float s[FK / 4];
-    float mx = -INFINITY;
+    // S = q k^T, 16 d a pass (two k steps of 8).  ldmatrix on 32-bit data:
+    // lane (g, t) gets word t of row g of each 8 x 4 matrix, which is the
+    // TF32 fragment layout.  q matrices: (rows 16mq.., d 16kp..), (rows
+    // 16mq+8.., d 16kp..), the same at d + 4; K: (keys 8nt.., d 16kp + 4i..)
+    // for i = 0..3, so kf[nt][2c], kf[nt][2c+1] are k step 2kp+c's b0, b1.
+    float s[MQ][FBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < FK / 4; ++i) {
-      const int cit = t + 4 * i;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        dot = fmaf(qs_[rl * (D + 1) + d], ks[cit * (D + 1) + d], dot);
-      s[i] = mask_score(a, dot * a.sm_scale, row, key0 + cit, qsg, kseg_s, cit);
-      mx = fmaxf(mx, s[i]);
+    for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) s[mq][nt][0] = s[mq][nt][1] = s[mq][nt][2] = s[mq][nt][3] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < D / 16; ++kp) {
+      uint32_t qh[MQ][2][4], ql[MQ][2][4], kh[FBK / 8][4], kl[FBK / 8][4];
+#pragma unroll
+      for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t r[4];
+          ak::ldsm4(r, qw + (16 * mq + lane % 16) * LD + kp * 16 + c * 8 + lane / 16 * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), qh[mq][c][i], ql[mq][c][i]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < FBK / 8; ++nt) {
+        uint32_t r[4];
+        ak::ldsm4(r, kt + (nt * 8 + lane % 8) * LD + kp * 16 + lane / 8 * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), kh[nt][i], kl[nt][i]);
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int nt = 0; nt < FBK / 8; ++nt)
+#pragma unroll
+          for (int mq = 0; mq < MQ; ++mq)
+            mma_tf32x3(s[mq][nt], qh[mq][c], ql[mq][c], kh[nt][2 * c], kh[nt][2 * c + 1],
+                       kl[nt][2 * c], kl[nt][2 * c + 1]);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m, mx);
-    const float al = expf(m - mn);
-    m = mn;
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < FK / 4; ++i) {
-      s[i] = expf(s[i] - mn);
-      sum += s[i];
-      ps[rl * (FK + 1) + t + 4 * i] = s[i];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l = al * l + sum;
-    __syncwarp();  // a row's four threads share one warp
-    // this thread's output dims: t, t + 4, ...
-#pragma unroll
-    for (int i = 0; i < D / 4; ++i) {
-      float pv = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < FK; ++kk)
-        pv = fmaf(ps[rl * (FK + 1) + kk], vs[kk * D + t + 4 * i], pv);
-      acc[i] = acc[i] * al + pv;
-    }
-    __syncthreads();
-  }
 
-  if (row < a.Sq) {
-    const float li = l == 0.f ? 1.f : 1.f / l;
-    float* out = static_cast<float*>(a.out) + ((size_t)bh * a.Sq + row) * D;
+    // scale into log2 units, mask where needed, running max and sum, P
+    softmax_tile<D, MQ, FBK>(a, s, o, m, l, wr0, key0, b, ksg + slot * FBK);
+
+    // acc += P V, 8 keys a k step.  The k index is permuted so that no
+    // value moves between lanes: step kk's k t is key 8kk + 2t and k t+4 is
+    // key 8kk + 2t + 1, so P's A fragment is this thread's own S fragment
+    // (keys 2t, 2t+1 of n tile kk) and V's b0, b1 are rows 2t, 2t+1 at
+    // column g, two 32-bit loads (banks 8t + g: LD % 16 == 4)
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) out[t + 4 * i] = acc[i] * li;
+    for (int kk = 0; kk < FBK / 8; ++kk) {
+      uint32_t ph[MQ][4], pl[MQ][4];
+#pragma unroll
+      for (int mq = 0; mq < MQ; ++mq) {
+        split_tf32(s[mq][kk][0], ph[mq][0], pl[mq][0]);
+        split_tf32(s[mq][kk][2], ph[mq][1], pl[mq][1]);
+        split_tf32(s[mq][kk][1], ph[mq][2], pl[mq][2]);
+        split_tf32(s[mq][kk][3], ph[mq][3], pl[mq][3]);
+      }
+      const float* vr = vt + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int d0 = 0; d0 < D / 8; d0 += 2) {
+        uint32_t vh[2][2], vl[2][2];
+#pragma unroll
+        for (int j2 = 0; j2 < 2; ++j2) {
+          split_tf32(vr[(d0 + j2) * 8], vh[j2][0], vl[j2][0]);
+          split_tf32(vr[(d0 + j2) * 8 + LD], vh[j2][1], vl[j2][1]);
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < 2; ++j2)
+#pragma unroll
+          for (int mq = 0; mq < MQ; ++mq)
+            mma_tf32x3(o[mq][d0 + j2], ph[mq], pl[mq], vh[j2][0], vh[j2][1], vl[j2][0],
+                       vl[j2][1]);
+      }
+    }
   }
+  ak::cp_wait<0>();
+
+  float* out = static_cast<float*>(a.out) + ((size_t)b * a.H + h) * a.Sq * D;
+#pragma unroll
+  for (int mq = 0; mq < MQ; ++mq)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = wr0 + 16 * mq + g + 8 * e;
+      if (r >= a.Sq) continue;
+      const float li = l[mq][e] == 0.f ? 1.f : 1.f / l[mq][e];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + dt * 8 + 2 * t) =
+            make_float2(o[mq][dt][2 * e] * li, o[mq][dt][2 * e + 1] * li);
+    }
 }
 
 template <int D, int MQ>
@@ -496,26 +660,34 @@ cudaError_t launch_bf16(const Args& a, int B, int hpb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D, int MQ>
+cudaError_t launch_tf32(const Args& a, int B, int hpb, cudaStream_t stream) {
+  constexpr int smem = tf32_smem<D, MQ>();
+  const cudaError_t e = ak::allow_smem<flash_tf32<D, MQ>>(smem);
+  if (e != cudaSuccess) return e;
+  const int bq = block_rows(MQ) / hpb;
+  dim3 grid(B * a.Hkv * (a.H / a.Hkv / hpb), (a.Sq + bq - 1) / bq);
+  flash_tf32<D, MQ><<<grid, FW * 32, smem, stream>>>(a, hpb);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Args& a, int B, int bf16, cudaStream_t stream) {
   if constexpr (D > 128) {  // bf16 only, one row tile a warp
     if (!bf16) return cudaErrorInvalidValue;
     const int hpb = (a.H / a.Hkv) % 2 == 0 ? 2 : 1;
     return launch_bf16<D, 1>(a, B, hpb, stream);
-  } else if (bf16) {
+  } else {
     // two query heads a block where a kv head serves an even number; two
     // row tiles a warp unless that leaves fewer than two blocks an SM
     const int R = a.H / a.Hkv, hpb = R % 2 == 0 ? 2 : 1;
     const int bq = block_rows(2) / hpb;
     const long long blocks = (long long)B * a.Hkv * (R / hpb) * ((a.Sq + bq - 1) / bq);
-    return blocks >= 2 * ak::sm_count() ? launch_bf16<D, 2>(a, B, hpb, stream)
-                                     : launch_bf16<D, 1>(a, B, hpb, stream);
+    const bool two = blocks >= 2 * ak::sm_count();
+    if (bf16)
+      return two ? launch_bf16<D, 2>(a, B, hpb, stream) : launch_bf16<D, 1>(a, B, hpb, stream);
+    return two ? launch_tf32<D, 2>(a, B, hpb, stream) : launch_tf32<D, 1>(a, B, hpb, stream);
   }
-  if constexpr (D <= 128) {
-    dim3 grid(B * a.H, (a.Sq + FQ - 1) / FQ);
-    flash_f32<D><<<grid, FTHREADS, 0, stream>>>(a);
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace

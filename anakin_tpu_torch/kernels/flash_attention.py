@@ -11,8 +11,11 @@ h // (H // Hkv)), so the caller need not copy them.  Segment ids are
 [B, Sq] and [B, Sk] int32, given together or not at all.
 
 On a CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/flash_attention.cu` (bf16 through mma.sync, float32 through FMA; the
-file's header gives the design and the tolerance against `mha_reference`).
+`csrc/flash_attention.cu` (bf16 through mma.sync; float32 through split-TF32
+mma.sync, three TF32 products a float32 product; the file's header gives the
+design and the tolerance against `mha_reference`).  `flash_attention.
+launches` counts every launch, `flash_attention.launches_f32` those of the
+float32 route beside it.
 On a CPU tensor it runs `mha_reference`, the JAX package's dense golden
 model in plain PyTorch.  Both mask a ragged S themselves, so no length has
 to be padded.
@@ -32,8 +35,8 @@ __all__ = ["flash_attention", "flash_attention_op", "mha_reference",
            "MASK_VALUE", "head_dims", "takes_head_dim"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# head dims the CUDA kernel is instantiated for; the float32 kernel keeps a
-# q, k and v tile in static shared memory, which 256 would overflow
+# head dims the CUDA kernel is instantiated for; the float32 route's q tile
+# and accumulator at 256 would not fit beside its split operands
 _HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 96, 128, 256),
               torch.float32: (32, 64, 80, 96, 128)}
 
@@ -159,10 +162,13 @@ def _flash_attention(q, k, v, q_segment_ids, kv_segment_ids, *, causal,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention.launches_f32 += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
 
 
 @torch.library.custom_op("anakin_tpu_torch::flash_attention", mutates_args=())

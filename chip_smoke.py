@@ -63,7 +63,12 @@ Phases:
               greedy tokens after a 512-token prompt: the prefill (bucket
               512, so flash) must launch flash_attention 16 times; tokens in
               range, logits finite; prefill ms, decode ms per token step and
-              tokens/s from CUDA events; one profiled decode step;
+              tokens/s from CUDA events; one profiled decode step; then
+              (5 b) the session's default precision, float32, at b8 on the
+              same prompt: the "auto" prefill (the float32 flash route, 16
+              launches) and `prefill_attention="dense"` (none), last-position
+              logits within phase 8's 1.5% of the largest and first tokens
+              equal wherever the dense top-2 gap exceeds it; both ms;
   6. llm B    the w4 decode step (`weight_only_quantize(bits=4)` of the
               int8-KV aligned decode graph) through `Net(precision="bf16")`
               for 32 chained greedy steps: 33 matmul_w4 launches a step;
@@ -74,7 +79,10 @@ Phases:
               and the bf16 kernel's other paths (one, two and four query
               heads per kv head, an odd group, D = 64 and 32, S = 128 k + 1,
               no causal mask), and the head dims 80, 96 and 256 (ragged
-              lengths too); matmul_w4 with bf16 scales (as the net hands
+              lengths too); the float32 route at D = 32 (an odd group, S
+              129), 64, 80 (segment ids), 96 and 128, and non-causal
+              cross-attention (S 300 over 700 keys); matmul_w4 with bf16
+              scales (as the net hands
               them over) and float32 ones, M = 1, 5, 16 (the edges of the
               M <= 16 route) and 4096, N = 1003 (the byte-by-byte path), K
               = G = 128 (one group, one split), float32 x, and the groups
@@ -204,13 +212,17 @@ Phases:
               common prefix with greedy and the target's top-2 gap where they
               part; then draft = target at 2 of the 16 layers in float32:
               one round (k + 2 tokens) accepts every draft on each loop, and
-              over 64 tokens every loop's tokens equal greedy's;
+              over 64 tokens every loop's tokens equal greedy's, the first
+              loop's generate counted (4 float32 flash launches: the two
+              prefills);
  17. tuned    the long-context prefill of the JAX suite (vocab 8000, E 1024, 8
               heads, 4 layers, b2, S 2048, a bf16 net): `optimize(autotune=
               True, tuner_cache=build/...)`, the tuner's choice and both
-              candidates' times; the dense and the tuned net's ms per batch
-              with their flash launches counted; a second `optimize` that
-              reads the cache and times nothing;
+              candidates' times, its float32 flash launches counted (the
+              flash candidate's 16 calls); the dense and the tuned net's ms
+              per batch with their flash launches counted, the tuned net's
+              logits within phase 8's 1.5% of the dense net's largest; a
+              second `optimize` that reads the cache and times nothing;
  18. cnn      `calibrate(method="max")` on the card, then VGG16 int8 b8,
               GoogLeNet bf16 and int8 b8, ShuffleNet v1 (groups 3) int8 b128
               at 224 px (bf16 nets), each forward with the counts set to 0
@@ -329,11 +341,18 @@ Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  The kernels line's
 `matmul_w4_wgmma` entry is matmul_w4's M > 16 route, of either variant,
 over phase 15's counted round: its launches there, and its times summed
-over phase 7's rows at the shapes it launched.  Each entry of the kernels
+over phase 7's rows at the shapes it launched.  The `flash_attention_f32`
+entry is flash_attention's float32 route over one tuning of phase 17's key
+(its launches there, times from phase 7's row at the tuner's shape); the
+`flash_attention` entry holds the bf16 route's rows only.  Float32 flash
+bounds take three TF32 products a product at the TF32 tensor-core rate (the
+kernel's split).  Each entry of the kernels
 line also has `launches_by_path`, its launches in each int8 detector's
 and RNN net's forward, in the converted ResNet-50's int8 forward and in
 the loaded program's call (phase 22), in one batch of the served ResNet-50
-and in the six Generate requests (phase 23).  `--kernels-only` runs phases 1, 7 and 13 and
+and in the six Generate requests (phase 23), the float32 session prefill
+(phase 5 b) and the draft = target float32 generate (phase 16).
+`--kernels-only` runs phases 1, 7 and 13 and
 phases 18, 19 and 21's kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`; `--w4-only` runs
 phase 1, phase 7's timed matmul_w4 rows at the bucket admissions and phase
@@ -360,6 +379,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate, op/s
 PEAK_BF16_OPS = 989e12      # H100 SXM dense bf16 tensor-core rate, flop/s
+PEAK_TF32_OPS = 495e12      # H100 SXM dense TF32 tensor-core rate, flop/s
 PEAK_F32_OPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
 BATCH, IMAGE = 128, 224
@@ -371,6 +391,9 @@ KERNEL_META = {
                      "anakin_tpu/kernels/conv_int8.py:118"),
     "flash_attention": ("anakin_tpu_torch/csrc/flash_attention.cu",
                         "anakin_tpu/kernels/flash_attention.py:101"),
+    # its float32 route (flash_tf32), over one tuning of phase 17's key
+    "flash_attention_f32": ("anakin_tpu_torch/csrc/flash_attention.cu",
+                            "anakin_tpu/kernels/flash_attention.py:101"),
     "matmul_w4": ("anakin_tpu_torch/csrc/matmul_w4.cu",
                   "anakin_tpu/kernels/matmul_w4.py:129"),
     "depthwise3x3_int8": ("anakin_tpu_torch/csrc/depthwise3x3_int8.cu",
@@ -734,7 +757,8 @@ def summarize(results, counts, units):
 def kernel_counters():
     """{kernel: (wrapper, name of its launch count)}: matmul_w4 counts its
     two variants apart, and its M > 16 route's launches of either variant
-    beside them."""
+    beside them; flash_attention its float32 route's launches beside all
+    of its launches."""
     from anakin_tpu_torch.kernels import (bottleneck_int8, conv3x3_int8,
                                           depthwise3x3_int8, flash_attention,
                                           matmul_int8, matmul_w4)
@@ -746,6 +770,7 @@ def kernel_counters():
     counters = {k: (fn, "launches") for k, fn in counters.items()}
     counters["matmul_w4_v2"] = (matmul_w4, "launches_v2")
     counters["matmul_w4_wgmma"] = (matmul_w4, "launches_wgmma")
+    counters["flash_attention_f32"] = (flash_attention, "launches_f32")
     return counters
 
 
@@ -1048,6 +1073,71 @@ def llm_path_a(report, cfg, params, card):
     return counts
 
 
+def float32_session_prefill(report, cfg, params, card):
+    """Phase 5 b: the session's default precision, float32
+    (`GenerationSession(batch 8, precision="fp32")`, float32 KV cache), on
+    phase 5's 512-token prompt: the "auto" prefill (bucket 512, so the
+    float32 flash route, 16 launches) against `prefill_attention="dense"`
+    (none), each once with the counts set to 0 just before and read just
+    after; last-position logits within LLM_TOL of the largest, first tokens
+    equal wherever the dense prefill's top-2 gap exceeds it; both
+    prefills' ms.  Returns the auto prefill's counts."""
+    from anakin_tpu_torch.runtime.generate import GenerationSession
+
+    t0 = time.perf_counter()
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LLM_BATCH, PROMPT)).astype(np.int32)).cuda()
+    res, logits = {}, {}
+    for name in ("auto", "dense"):
+        sess = GenerationSession(cfg, batch=LLM_BATCH, params=params,
+                                 precision="fp32", prefill_attention=name,
+                                 device="cuda")
+        sess._prefill(prompt)  # builds the bucket's net; warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        lg, _ = sess._prefill(prompt)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = cfg.layers if name == "auto" else 0
+        if counts != dict(no_launches(), flash_attention=want,
+                          flash_attention_f32=want):
+            raise AssertionError(f"float32 {name} prefill: expected {want} "
+                                 f"float32 flash launches, got {counts}")
+        if tuple(lg.shape) != (LLM_BATCH, 1, cfg.vocab) or \
+                not torch.isfinite(lg).all():
+            raise AssertionError(f"float32 {name} prefill: bad logits "
+                                 f"{tuple(lg.shape)}")
+        logits[name] = lg[:, 0].float().cpu()
+        ms = cuda_ms(lambda: sess._prefill(prompt), iters=3, warmup=1)
+        res[name] = dict(prefill_ms=ms, launches=counts)
+        log(f"[llm fp32] prefill {PROMPT} tokens x{LLM_BATCH} float32, "
+            f"attention {name}: {ms:.3f} ms; flash launches "
+            f"{counts['flash_attention_f32']} | {card}")
+        del sess
+        torch.cuda.empty_cache()
+    fa, fd = logits["auto"], logits["dense"]
+    scale = float(fd.abs().max())
+    err = float((fa - fd).abs().max())
+    top2 = torch.topk(fd, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = fa.argmax(-1) == fd.argmax(-1)
+    decided = gap > LLM_TOL * scale
+    log(f"[llm fp32] auto (flash) against dense: logits max diff {err:.4g} "
+        f"({err / scale:.3g} of the largest, tolerance {LLM_TOL}), first "
+        f"tokens equal {same.tolist()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if err > LLM_TOL * scale:
+        raise AssertionError(f"float32 auto and dense prefill logits differ "
+                             f"by {err / scale:.3g} of the largest")
+    if not bool(same[decided].all()):
+        raise AssertionError("float32 auto and dense first tokens differ "
+                             "where decided")
+    res.update(max_abs_diff=err, rel_to_max=err / scale,
+               tokens_equal=same.tolist())
+    report["llm_fp32_prefill"] = res
+    return res["auto"]["launches"]
+
+
 # the w4 weights of the LLM, quantized once for phases 6 and 12
 # (`weight_only_quantize`'s `packed`)
 W4_PACKED = {}
@@ -1190,20 +1280,30 @@ def llm_path_b_v2(report, cfg, params, card):
 
 
 def _flash_bound(q, k, n_pairs, segs):
+    """max(bytes / HBM rate, operations / peak): bf16 at the bf16 tensor-core
+    rate; float32 as the kernel computes it, three TF32 products a product
+    (the split) at the TF32 tensor-core rate."""
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     if segs is not None:
         nbytes += 4 * (segs.numel() * 2)
     ops = 4 * q.shape[1] * q.shape[3] * n_pairs
-    peak = PEAK_BF16_OPS if q.dtype == torch.bfloat16 else PEAK_F32_OPS
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    if q.dtype == torch.bfloat16:
+        t_o = ops / PEAK_BF16_OPS * 1e3
+    else:
+        t_o = 3 * ops / PEAK_TF32_OPS * 1e3
+    t_b = nbytes / PEAK_BYTES * 1e3
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
 
 
 def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
-                timed=True):
+                timed=True, Sk=None):
     """flash_attention against mha_reference on the card; tolerance as in
     csrc/flash_attention.cu: float32 |d| <= 3e-5 max|v|; bf16 |d| <=
-    2^-7 |want| + 3e-5 max|v|.  `timed=False` skips the timings (None)."""
+    2^-7 |want| + 3e-5 max|v|.  `timed=False` skips the timings (None).
+    `Sk` (default S) gives k and v another length: cross-attention.  The
+    library call is SDPA on the kv heads repeated, with
+    `torch.backends.cuda.matmul.allow_tf32` False.  Float32 rows are
+    named flash_attention_f32 (the kernels line's entry of that route)."""
     import torch.nn.functional as F
     from anakin_tpu_torch.kernels.flash_attention import (flash_attention,
                                                           mha_reference)
@@ -1211,17 +1311,19 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v = rnd(B, H, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)
-    t = torch.arange(S, device="cuda")
+    Sk = S if Sk is None else Sk
+    q, k, v = rnd(B, H, S, D), rnd(B, Hkv, Sk, D), rnd(B, Hkv, Sk, D)
     segs = None
-    allowed = torch.ones((B, S, S), dtype=torch.bool, device="cuda")
+    allowed = torch.ones((B, S, Sk), dtype=torch.bool, device="cuda")
     if lengths is not None:
+        t = torch.arange(S, device="cuda")
         segs = (t[None] >= torch.tensor(lengths, device="cuda")[:, None]).to(torch.int32)
         allowed &= segs[:, :, None] == segs[:, None, :]
     if causal:
-        allowed &= (t[None, :] <= t[:, None])[None]
+        allowed &= (torch.arange(Sk, device="cuda")[None, :]
+                    <= torch.arange(S, device="cuda")[:, None])[None]
     n_pairs = int(allowed.sum())
-    launches = flash_attention.launches
+    launches = flash_attention.launches, flash_attention.launches_f32
     got = flash_attention(q, k, v, segs, segs, causal=causal)
     want = mha_reference(q, k, v, segs, segs, causal=causal)
     torch.cuda.synchronize()
@@ -1246,10 +1348,17 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
             mask = allowed[:, None]
             lib = lambda: F.scaled_dot_product_attention(q, kr, vr,
                                                          attn_mask=mask)
-        library_ms = graph_ms(lib, iters=iters)
-    flash_attention.launches = launches
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            library_ms = graph_ms(lib, iters=iters)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    flash_attention.launches, flash_attention.launches_f32 = launches
     bms, by = _flash_bound(q, k, n_pairs, segs)
-    return dict(kernel="flash_attention", shape=[B, H, Hkv, S, D],
+    return dict(kernel=("flash_attention" if dtype == torch.bfloat16
+                        else "flash_attention_f32"),
+                shape=[B, H, Hkv, S, D], sk=Sk,
                 dtype=str(dtype).split(".")[-1], causal=causal,
                 lengths=lengths, ok=ok, max_abs_err=float(d.max()),
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1480,6 +1589,22 @@ def attach_wgmma_calls(results, wgmma_calls):
         rows[0]["calls_per_run"] = n
 
 
+def attach_tuner_calls(results, n):
+    """Phase 17's count of float32 flash launches in one tuning sets
+    calls_per_run on phase 7's row at the tuner's shape, which the kernels
+    line's flash_attention_f32 entry then sums."""
+    from anakin_tpu_torch.models import TransformerConfig
+
+    lc = TransformerConfig(**LONGCTX_CFG)
+    shape = [LONGCTX_BATCH, lc.heads, lc.kv_heads, lc.max_seq, lc.head_dim]
+    rows = [r for r in results if r["kernel"] == "flash_attention_f32"
+            and r["shape"] == shape and r["causal"] and r["ms"] is not None]
+    if not rows:
+        raise AssertionError(f"no timed float32 flash row at the tuner's "
+                             f"shape {shape}")
+    rows[0]["calls_per_run"] = n
+
+
 def check_wgmma_routes(results):
     """Every bf16 row with M > 16 and a group that is a multiple of 64 took
     the wgmma route."""
@@ -1505,6 +1630,7 @@ W4_GROUP_CASES = [  # (M, K, N, G, dtype, scales in bf16, calls per run)
 
 def llm_kernels(report, cfg):
     """Phase 7: both LLM kernels against their plain versions."""
+    from anakin_tpu_torch.kernels import autotune
     from anakin_tpu_torch.models import TransformerConfig
 
     E, F_ = cfg.embed, 4 * cfg.embed
@@ -1561,11 +1687,23 @@ def llm_kernels(report, cfg):
          "a tuned long-context forward (if the tuner takes flash)", lc.layers),
         ((LONGCTX_BATCH, lc.heads, lc.kv_heads, lc.max_seq, lc.head_dim,
           torch.float32, True, None, 0),
-         "the tuner's flash candidate (timed calls)", 0),
+         "a tuning of phase 17's key (the flash candidate's calls)",
+         1 + autotune._WINDOWS * autotune._CALLS),
     ]
     where = {len(flash_cases) + i: (w, n)
              for i, (_, w, n) in enumerate(elsewhere)}
     flash_cases += [row for row, _, _ in elsewhere]
+    # the float32 route at every head dim it takes beside 96 and 128 (D 32
+    # with an odd group and a ragged tile, D 64 with two row tiles a warp,
+    # D 80 with segment ids), and non-causal cross-attention (Sk != Sq):
+    # row index -> Sk
+    sk = {len(flash_cases) + 3: 700}
+    flash_cases += [
+        (2, 6, 2, 129, 32, torch.float32, True, None, 0),
+        (B, H, Hkv, PROMPT, 64, torch.float32, True, None, 0),
+        (2, H, Hkv, 300, 80, torch.float32, True, [300, 173], 0),
+        (2, H, Hkv, 300, D, torch.float32, False, None, 0),
+    ]
     bf16, f32 = torch.bfloat16, torch.float32
     w4_cases = [  # (M, K, N, G, dtype, scales in bf16, calls per 32 steps)
         # the path: the bf16 net hands its scales over in bf16
@@ -1597,17 +1735,19 @@ def llm_kernels(report, cfg):
     results = []
     for i, (b, h, hkv, s, d, dt, causal, lens, calls) in enumerate(flash_cases):
         t0 = time.perf_counter()
-        r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls)
+        r = check_flash(b, h, hkv, s, d, dt, causal, lens, gen, calls,
+                        Sk=sk.get(i))
         if i in where:
             r["elsewhere"] = dict(zip(("path", "launches"), where[i]))
         results.append(r)
         log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
-            f" lengths={lens} x{calls}"
+            f" lengths={lens}" + (f" Sk={r['sk']}" if i in sk else "")
+            + f" x{calls}"
             + (f" (x{where[i][1]} in {where[i][0]})" if i in where else "")
             + f" err={r['max_abs_err']:.3g} ok={r['ok']} "
             f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
-            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']})"
-            f" ({time.perf_counter() - t0:.1f} s)")
+            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it) ({time.perf_counter() - t0:.1f} s)")
     for m, k, n, grp, dt, bs, calls in w4_cases:
         results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs))
         log_w4_row(results[-1], calls)
@@ -2903,7 +3043,20 @@ def speculative_phase(report, cfg, params, card):
         want = small.generate(prompt, n)
         for path in SPEC_PATHS:
             r0, a0, p0 = same.rounds, same.drafts_accepted, same.drafts_proposed
+            counted = n == SPEC_K + 2 and path == "generate"
+            if counted:  # its two float32 prefills on the float32 flash route
+                reset_counts()
             out = getattr(same, path)(prompt, n)
+            if counted:
+                torch.cuda.synchronize()
+                f32_counts = read_counts()
+                want_f32 = 2 * SPEC_SMALL_LAYERS
+                log(f"[spec] draft = target, float32, one generate: launches "
+                    f"{f32_counts}")
+                if f32_counts != dict(no_launches(), flash_attention=want_f32,
+                                      flash_attention_f32=want_f32):
+                    raise AssertionError(f"expected {want_f32} float32 flash "
+                                         f"launches, got {f32_counts}")
             rate = (same.drafts_accepted - a0) / (same.drafts_proposed - p0)
             row = exact.setdefault(f"{n}_tokens", {})[path] = dict(
                 tokens_equal_greedy=bool(np.array_equal(out, want)),
@@ -2922,7 +3075,9 @@ def speculative_phase(report, cfg, params, card):
                 raise AssertionError(f"{path}: draft = target accepted "
                                      f"{rate:.3f} of its drafts")
     res["draft_equals_target"] = exact
+    res["draft_equals_target_launches"] = f32_counts
     report["speculative"] = res
+    return f32_counts
 
 
 # ------------------------------------------------- tuned long-context prefill
@@ -2959,8 +3114,16 @@ def tuned_prefill_phase(report, card):
         os.remove(cache)
     t0 = time.perf_counter()
     tuner = AutoTuner(cache)
+    reset_counts()
     tuned = autotune_graph(ak.optimize(g), tuner)
+    tune_counts = read_counts()
     tune_s = time.perf_counter() - t0
+    if not tune_counts["flash_attention_f32"] or tune_counts != dict(
+            no_launches(), flash_attention=tune_counts["flash_attention_f32"],
+            flash_attention_f32=tune_counts["flash_attention_f32"]):
+        raise AssertionError(f"the tuning should launch the float32 flash "
+                             f"route (its flash candidate) and nothing "
+                             f"else: {tune_counts}")
     t0 = time.perf_counter()
     reread = AutoTuner(cache)
     again = autotune_graph(ak.optimize(g), reread)
@@ -2983,12 +3146,15 @@ def tuned_prefill_phase(report, card):
     log(f"[tune] tuning {tune_s:.1f} s: candidates at "
         f"[{LONGCTX_BATCH}, {S}, {cfg.embed}] float32 (the tuner's operands) "
         f"{ {k: round(v, 4) for k, v in times.items()} } ms -> {impls[0]} "
-        f"on all {len(attn)} attention nodes (margin 1.3); the second "
-        f"tuner {again_s:.1f} s read the cache and timed nothing")
+        f"on all {len(attn)} attention nodes (margin 1.3); "
+        f"{tune_counts['flash_attention_f32']} float32 flash launches; the "
+        f"second tuner {again_s:.1f} s read the cache and timed nothing "
+        f"| {card}")
     x = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (LONGCTX_BATCH, S)).astype(np.int32)).cuda()
     res = dict(candidates_ms=times, impls=impls, tune_s=tune_s,
-               cached_tune_s=again_s)
+               cached_tune_s=again_s, tune_launches=tune_counts)
+    logits = {}
     for name, graph in (("dense", ak.optimize(g)), ("tuned", tuned)):
         net = ak.Net(graph, precision="bf16")
         net.prediction({"input": x})
@@ -3003,6 +3169,7 @@ def tuned_prefill_phase(report, card):
         if tuple(y.shape) != (LONGCTX_BATCH, S, cfg.vocab) or \
                 not torch.isfinite(y.float()).all():
             raise AssertionError(f"{name}: bad logits {tuple(y.shape)}")
+        logits[name] = y.float()
         ms = cuda_ms(lambda: net.prediction({"input": x}), iters=3, windows=3)
         res[name] = dict(ms_per_batch=ms, launches=counts,
                          tokens_per_s=LONGCTX_BATCH * S / ms * 1e3)
@@ -3010,7 +3177,18 @@ def tuned_prefill_phase(report, card):
             f"ms/batch, {LONGCTX_BATCH * S / ms * 1e3:.0f} tokens/s, "
             f"launches {counts} | {card}")
         del net
+    # the tuned net's logits against the dense net's (flash_bf16 against
+    # the dense bf16 attention where the tuner took flash)
+    scale = float(logits["dense"].abs().max())
+    err = float((logits["tuned"] - logits["dense"]).abs().max())
+    res["tuned_vs_dense"] = dict(max_abs_diff=err, rel_to_max=err / scale)
+    log(f"[tune] tuned ({impls[0]}) against dense logits: max |diff| "
+        f"{err:.4g} ({err / scale:.3g} of the largest, tolerance {LLM_TOL})")
+    if err > LLM_TOL * scale:
+        raise AssertionError(f"the tuned prefill's logits differ from the "
+                             f"dense one's by {err / scale:.3g} of the largest")
     report["tuned_prefill"] = res
+    return tune_counts
 
 
 # ----------------------------------------------------------- CNN breadth
@@ -5929,6 +6107,7 @@ def main(argv) -> int:
         f" M params, seed 0): {time.perf_counter() - t0:.1f} s")
     counts["flash_attention"] = llm_path_a(report, cfg, params, card)[
         "flash_attention"]
+    f32_prefill_counts = float32_session_prefill(report, cfg, params, card)
     counts["matmul_w4"] = llm_path_b(report, cfg, params, card)["matmul_w4"]
     units.update(flash_attention="one generate (its 512-token prefill)",
                  matmul_w4=f"{NEW} w4 decode steps")
@@ -5969,7 +6148,7 @@ def main(argv) -> int:
     log(f"[time] scheduler phase done at {time.perf_counter() - t_start:.0f} s")
 
     # ----------------------------------------------------- 16. speculative
-    speculative_phase(report, cfg, params, card)
+    f32_spec_counts = speculative_phase(report, cfg, params, card)
     log(f"[time] speculative phase done at "
         f"{time.perf_counter() - t_start:.0f} s")
 
@@ -5982,7 +6161,12 @@ def main(argv) -> int:
         f"{time.perf_counter() - t_start:.0f} s")
 
     # ------------------------------------------- 17. tuned long-context prefill
-    tuned_prefill_phase(report, card)
+    counts["flash_attention_f32"] = tuned_prefill_phase(report, card)[
+        "flash_attention_f32"]
+    units["flash_attention_f32"] = (
+        "one tuning of phase 17's attention key (the flash candidate: "
+        "float32 [2, 8, 8, 2048, 128] causal)")
+    attach_tuner_calls(results, counts["flash_attention_f32"])
     log(f"[time] tuned prefill phase done at "
         f"{time.perf_counter() - t_start:.0f} s")
 
@@ -6008,6 +6192,8 @@ def main(argv) -> int:
     io_counts["served ResNet-50 int8 (one batch)"] = dict(
         no_launches(), **serve_cnn_phase(report, card))
     io_counts["Generate RPCs (6 requests)"] = serve_llm_counts
+    io_counts["float32 session prefill (phase 5 b)"] = f32_prefill_counts
+    io_counts["draft = target float32 generate (phase 16)"] = f32_spec_counts
     log(f"[time] serving phase (CNN) done at "
         f"{time.perf_counter() - t_start:.0f} s")
 
