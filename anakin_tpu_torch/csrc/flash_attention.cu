@@ -95,9 +95,9 @@
 //     fragment is the thread's own S fragment: no shuffle.
 //   * q is split from shared memory on each kv tile (its hi / lo for the
 //     whole loop would take 128 registers a row tile at D = 128).
-//   * The split is integer and float work (split_tf32), the most of the
-//     loop's instructions beside the MMAs: every warp splits the whole K
-//     and V tile it reads.
+//   * The split is integer and float work (split_tf32, tf32_mma.cuh), the
+//     most of the loop's instructions beside the MMAs: every warp splits
+//     the whole K and V tile it reads.
 // What bounds it: 3 x 4 D operations an unmasked (row, col) pair at the
 // TF32 tensor-core rate (495 TFLOP/s); at the path's shapes (S 512 and
 // 2048, D 128) these, not the bytes.
@@ -110,6 +110,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -447,36 +448,13 @@ constexpr int tf32_smem() {
           FW * 16 * MQ * (D + 4)) * 4;
 }
 
-// x = hi + lo, both TF32 as the tensor core reads a register: it ignores
-// the low 13 bits.  hi is x's bits plus half a TF32 ulp, so the MMA sees x
-// rounded to nearest with ties away from zero (cvt.rna.tf32's value); lo is
-// x minus that value, exact in float32, which the MMA truncates to 11
-// significant bits (about 2^-22 of x).  Three instructions where
-// cvt.rna.tf32.f32 alone compiles to five.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) + 0x1000u;
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-// c += a b on TF32 operands (m16n8k8, float32 accumulation).  Fragments
-// (g = lane / 4, t = lane % 4): a[0] (row g, k t), a[1] (row g+8, k t),
-// a[2] (row g, k t+4), a[3] (row g+8, k t+4); b0 (k t, col g), b1 (k t+4,
-// col g); c as in mma_bf16
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // c += (ah + al)(bh + bl) but for al bl: the three-product split
 __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
                                            const uint32_t (&al)[4], uint32_t bh0,
                                            uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
+  ak::mma_tf32(c, al, bh0, bh1);
+  ak::mma_tf32(c, ah, bl0, bl1);
+  ak::mma_tf32(c, ah, bh0, bh1);
 }
 
 // As flash_bf16, on float32 q, k, v and out.
@@ -577,14 +555,14 @@ __global__ void __launch_bounds__(FW * 32) flash_tf32(Args a, int hpb) {
           uint32_t r[4];
           ak::ldsm4(r, qw + (16 * mq + lane % 16) * LD + kp * 16 + c * 8 + lane / 16 * 4);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), qh[mq][c][i], ql[mq][c][i]);
+          for (int i = 0; i < 4; ++i) ak::split_tf32(__uint_as_float(r[i]), qh[mq][c][i], ql[mq][c][i]);
         }
 #pragma unroll
       for (int nt = 0; nt < FBK / 8; ++nt) {
         uint32_t r[4];
         ak::ldsm4(r, kt + (nt * 8 + lane % 8) * LD + kp * 16 + lane / 8 * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), kh[nt][i], kl[nt][i]);
+        for (int i = 0; i < 4; ++i) ak::split_tf32(__uint_as_float(r[i]), kh[nt][i], kl[nt][i]);
       }
 #pragma unroll
       for (int c = 0; c < 2; ++c)
@@ -609,10 +587,10 @@ __global__ void __launch_bounds__(FW * 32) flash_tf32(Args a, int hpb) {
       uint32_t ph[MQ][4], pl[MQ][4];
 #pragma unroll
       for (int mq = 0; mq < MQ; ++mq) {
-        split_tf32(s[mq][kk][0], ph[mq][0], pl[mq][0]);
-        split_tf32(s[mq][kk][2], ph[mq][1], pl[mq][1]);
-        split_tf32(s[mq][kk][1], ph[mq][2], pl[mq][2]);
-        split_tf32(s[mq][kk][3], ph[mq][3], pl[mq][3]);
+        ak::split_tf32(s[mq][kk][0], ph[mq][0], pl[mq][0]);
+        ak::split_tf32(s[mq][kk][2], ph[mq][1], pl[mq][1]);
+        ak::split_tf32(s[mq][kk][1], ph[mq][2], pl[mq][2]);
+        ak::split_tf32(s[mq][kk][3], ph[mq][3], pl[mq][3]);
       }
       const float* vr = vt + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
@@ -620,8 +598,8 @@ __global__ void __launch_bounds__(FW * 32) flash_tf32(Args a, int hpb) {
         uint32_t vh[2][2], vl[2][2];
 #pragma unroll
         for (int j2 = 0; j2 < 2; ++j2) {
-          split_tf32(vr[(d0 + j2) * 8], vh[j2][0], vl[j2][0]);
-          split_tf32(vr[(d0 + j2) * 8 + LD], vh[j2][1], vl[j2][1]);
+          ak::split_tf32(vr[(d0 + j2) * 8], vh[j2][0], vl[j2][0]);
+          ak::split_tf32(vr[(d0 + j2) * 8 + LD], vh[j2][1], vl[j2][1]);
         }
 #pragma unroll
         for (int j2 = 0; j2 < 2; ++j2)

@@ -22,13 +22,20 @@ unknown name.
 On a CUDA tensor `matmul_w4` launches the hand-written Hopper kernel in
 `csrc/matmul_w4.cu` (v1 and v2 share its routes and differ only in the
 dequant; `matmul_w4.launches` counts v1's launches, `matmul_w4.launches_v2`
-v2's, and `matmul_w4.launches_wgmma` those of either variant that take the
-wgmma route); on a CPU tensor it runs `matmul_w4_plain`.  The two agree up
-to the order of the float32 sums.  Both take every group the quantizer
-writes: any even G that divides K.  The kernel's routes (`route` names the
-one a launch takes): "small" for bf16 x with M <= 16 (the decode steps),
-"wgmma" for bf16 x with M > 16 (the bucket admissions), "f32" for float32
-x, "rows" for groups that are not a multiple of 64.
+v2's, `matmul_w4.launches_wgmma` those of either variant that take the
+wgmma route, and `matmul_w4.launches_f32` those on the two float32 routes);
+on a CPU tensor it runs `matmul_w4_plain`.  Both take every group the
+quantizer writes: any even G that divides K.  The kernel's routes (`route`
+names the one a launch takes): "small" for bf16 x with M <= 16 (the decode
+steps), "wgmma" for bf16 x with M > 16 (the bucket admissions),
+"small_tf32" and "wgmma_tf32" for float32 x with M <= 16 and M > 16, each
+for every group that is a multiple of 32, and "rows" for the other groups
+(G 6, 16, 48, or K = G = 100).  The bf16 routes and "rows" agree with the
+plain version up to the order of the float32 sums.  The float32 routes
+run on the TF32 tensor cores, x split into a TF32 high and low part and
+the nibble exact, and stay within the same bound, 2 K 2^-24 (|x| @ |W|):
+x_hi + x_lo is x within 2^-21 of |x|, and the group scale multiplies the
+group's float32 sum where `unpack_w4` rounds each weight.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ __all__ = ["matmul_w4", "matmul_w4_plain", "matmul_w4_op", "route",
            "unpack_w4", "unpack_w4_v2"]
 
 VARIANTS = ("v1", "v2")
-ROUTES = ("small", "wgmma", "f32", "rows")  # by `ak_matmul_w4_route`'s code
+ROUTES = ("small", "wgmma", "small_tf32", "wgmma_tf32", "rows")  # by code
+F32_ROUTES = ("small_tf32", "wgmma_tf32")  # float32 x on the TF32 tensor cores
 
 
 def unpack_w4(packed: torch.Tensor, scales: torch.Tensor, group: int,
@@ -180,14 +188,18 @@ def _matmul_w4(x, packed, scales, *, group, variant):
         matmul_w4.launches_v2 += 1
     else:
         matmul_w4.launches += 1
-    if ROUTES[lib.ak_matmul_w4_route(M, N, K, group, dtypes)] == "wgmma":
+    name = ROUTES[lib.ak_matmul_w4_route(M, N, K, group, dtypes)]
+    if name == "wgmma":
         matmul_w4.launches_wgmma += 1
+    elif name in F32_ROUTES:
+        matmul_w4.launches_f32 += 1
     return out
 
 
 matmul_w4.launches = 0
 matmul_w4.launches_v2 = 0
 matmul_w4.launches_wgmma = 0
+matmul_w4.launches_f32 = 0
 
 
 @torch.library.custom_op("anakin_tpu_torch::matmul_w4", mutates_args=())

@@ -72,7 +72,11 @@ Phases:
   6. llm B    the w4 decode step (`weight_only_quantize(bits=4)` of the
               int8-KV aligned decode graph) through `Net(precision="bf16")`
               for 32 chained greedy steps: 33 matmul_w4 launches a step;
-              ms per token step, tokens/s, one profiled step;
+              ms per token step, tokens/s, one profiled step; then (6 b)
+              the same step in float32 (`Net(precision="fp32")`) from random
+              int8 caches: one eager step with 33 launches, all on the
+              float32 routes, then captured (`Net.compile`), equal to the
+              eager step and timed by replay;
   7. kernels  flash_attention and matmul_w4 against their plain versions on
               the card at every distinct shape of paths A and B, plus a
               ragged S = 300 with segment ids, S = 2048, float32 inputs,
@@ -95,8 +99,16 @@ Phases:
               (`ak_matmul_w4_route`) and splits of K; the wgmma route's
               edges untimed (M 17 and 130, N 1003 at M 130, K = G = 128
               and G = 64 at M 4096, the tp-2 halves N / 2 and K / 2 at
-              buckets 64 and 512), and every bf16 row with M > 16 must
-              have taken that route; tolerances as
+              buckets 64 and 512); float32 x at phase 6 b's three shapes,
+              M 5 and 4096, G 32 at M 8 and 4096 (and bf16 G 32 and 96 at
+              M 4096), untimed its edges (M 1, 16, 17, 130, N 1003, K = G =
+              128, G 64, the tp-2 halves, a second half-chunk past K) and
+              groups that go to w4_rows (48, K = G = 80); every row must
+              have taken the route its shape asks for (`w4_route_wanted`:
+              small / wgmma for bf16 x by M, small_tf32 / wgmma_tf32 for
+              float32 x, rows only for a group not a multiple of 32), and
+              float32 rows are bound by two TF32 products a product at the
+              TF32 rate; tolerances as
               each kernel's source states them; each timed beside its plain
               version, its bound (and its share of it), a library call
               (`scaled_dot_product_attention`, `torch._weight_int4pack_mm`)
@@ -105,7 +117,8 @@ Phases:
               on the card (flash prefill) and on the CPU (dense prefill):
               last-position logits and one teacher-forced w4 decode step
               within 1.5% of the largest logit, greedy tokens equal wherever
-              the CPU's top-2 gap exceeds that;
+              the CPU's top-2 gap exceeds that; the same w4 step in float32
+              (5 launches on the float32 routes) within 1e-3;
   9. mobilenet for v1, then v2: `calibrate` on the card, `quantize_graph`,
               `Net(precision="bf16")`, one b128 forward with the counts set
               to 0 just before and read just after: depthwise3x3_int8 must
@@ -147,7 +160,8 @@ Phases:
               scales with bf16 x (where v2's dequantized weights differ
               from v1's; the count is printed), phase 7's edges of the
               M <= 16 route (M = 1 and 16, N = 1003, K = G = 128), its
-              groups 32 and 96 and, untimed, its edges of the wgmma route;
+              groups 32 and 96, float32 x at M 5 and 4096 and, untimed,
+              its edges of the wgmma route and the half-chunk edges;
               tolerance as phase 7; timed beside its
               bound, its plain version, v1 on the same inputs and
               `torch._weight_int4pack_mm`;
@@ -341,7 +355,9 @@ Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`.  The kernels line's
 `matmul_w4_wgmma` entry is matmul_w4's M > 16 route, of either variant,
 over phase 15's counted round: its launches there, and its times summed
-over phase 7's rows at the shapes it launched.  The `flash_attention_f32`
+over phase 7's rows at the shapes it launched.  The `matmul_w4_f32` entry
+is matmul_w4's float32 routes over phase 6 b's float32 step, summed the
+same way.  The `flash_attention_f32`
 entry is flash_attention's float32 route over one tuning of phase 17's key
 (its launches there, times from phase 7's row at the tuner's shape); the
 `flash_attention` entry holds the bf16 route's rows only.  Float32 flash
@@ -351,7 +367,8 @@ line also has `launches_by_path`, its launches in each int8 detector's
 and RNN net's forward, in the converted ResNet-50's int8 forward and in
 the loaded program's call (phase 22), in one batch of the served ResNet-50
 and in the six Generate requests (phase 23), the float32 session prefill
-(phase 5 b) and the draft = target float32 generate (phase 16).
+(phase 5 b), the draft = target float32 generate (phase 16) and each
+rank's tp-2 float32 w4 step (phase 24).
 `--kernels-only` runs phases 1, 7 and 13 and
 phases 18, 19 and 21's kernel checks alone (no main path, so neither of
 those lines) and writes `build/chip_smoke_kernels.json`; `--w4-only` runs
@@ -403,6 +420,10 @@ KERNEL_META = {
     # the M > 16 route (w4_wgmma) of both variants, on phase 15's admissions
     "matmul_w4_wgmma": ("anakin_tpu_torch/csrc/matmul_w4.cu",
                         "anakin_tpu/kernels/matmul_w4.py:129"),
+    # the float32 routes (w4_small on TF32, w4_wgmma_tf32) of both variants,
+    # on phase 6 b's float32 w4 decode step
+    "matmul_w4_f32": ("anakin_tpu_torch/csrc/matmul_w4.cu",
+                      "anakin_tpu/kernels/matmul_w4.py:129"),
     "bottleneck_int8": ("anakin_tpu_torch/csrc/bottleneck_int8.cu",
                         "anakin_tpu/kernels/bottleneck_int8.py:134"),
 }
@@ -756,9 +777,9 @@ def summarize(results, counts, units):
 
 def kernel_counters():
     """{kernel: (wrapper, name of its launch count)}: matmul_w4 counts its
-    two variants apart, and its M > 16 route's launches of either variant
-    beside them; flash_attention its float32 route's launches beside all
-    of its launches."""
+    two variants apart, and its M > 16 route's launches and its float32
+    routes' launches of either variant beside them; flash_attention its
+    float32 route's launches beside all of its launches."""
     from anakin_tpu_torch.kernels import (bottleneck_int8, conv3x3_int8,
                                           depthwise3x3_int8, flash_attention,
                                           matmul_int8, matmul_w4)
@@ -770,6 +791,7 @@ def kernel_counters():
     counters = {k: (fn, "launches") for k, fn in counters.items()}
     counters["matmul_w4_v2"] = (matmul_w4, "launches_v2")
     counters["matmul_w4_wgmma"] = (matmul_w4, "launches_wgmma")
+    counters["matmul_w4_f32"] = (matmul_w4, "launches_f32")
     counters["flash_attention_f32"] = (flash_attention, "launches_f32")
     return counters
 
@@ -1012,6 +1034,10 @@ LLM_BATCH, PROMPT, NEW = 8, 512, 32
 # card vs CPU logits, as a fraction of the largest |logit|: about three
 # times the 0.4-0.5% measured on an H100 (PERF.md section 6)
 LLM_TOL = 0.015
+# a float32 w4 step, card vs CPU, as a share of the largest logit: the
+# float32 routes' split keeps the products within 2^-21 (phase 24 holds the
+# sharded float32 step to the same)
+F32_W4_TOL = 1e-3
 
 
 def llm_path_a(report, cfg, params, card):
@@ -1279,6 +1305,89 @@ def llm_path_b_v2(report, cfg, params, card):
     return counts
 
 
+F32_STEP_WINDOWS = 3  # replay windows of phase 6 b's timing
+
+
+def llm_path_b_f32(report, cfg, params, card):
+    """Phase 6 b: path B's w4 decode step in float32 (`Net(precision=
+    "fp32")`, b8, int8 KV cache, the 1B-class weights quantized once for
+    path B) on the float32 routes.  One eager step from random int8 caches
+    at position PROMPT with every count set to 0 just before and read just
+    after: 33 matmul_w4 launches, all on the float32 routes (matmul_w4_f32),
+    nothing else; its launches' shapes recorded.  Then the step captured
+    (`Net.compile`, the caches bound as static inputs): its logits equal
+    the eager step's, and its replay timed.  Returns the counts and the
+    launches by shape (attach_w4_calls)."""
+    import anakin_tpu_torch as ak
+    from anakin_tpu_torch.models import build_transformer_decode_step
+    from anakin_tpu_torch.quant import weight_only_quantize
+
+    t0 = time.perf_counter()
+    g = weight_only_quantize(build_transformer_decode_step(
+        cfg, LLM_BATCH, params, kv_cache_dtype="int8", aligned_pos=True),
+        bits=4, packed=W4_PACKED)
+    n_w4 = sum(n.op == "dense_w4" for n in g.nodes.values())
+    net = ak.Net(g, precision="fp32", device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    shape = (LLM_BATCH, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    base = {k: torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+            for k in g.inputs if k.startswith("cache_")}
+    tok = torch.randint(0, cfg.vocab, (LLM_BATCH, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos = torch.full((LLM_BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+    logits_e = g.outputs[0]
+    net.prediction(dict({k: v.clone() for k, v in base.items()}, input=tok,
+                        pos=pos))  # warm-up
+    eager_c = {k: v.clone() for k, v in base.items()}
+    tap = launched_llm_shapes()
+    torch.cuda.synchronize()
+    reset_counts()
+    with tap:
+        want = net.prediction(dict(eager_c, input=tok, pos=pos))[logits_e]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[llm B fp32] launches in one float32 w4 decode step: {counts}")
+    if counts != dict(no_launches(), matmul_w4=n_w4, matmul_w4_f32=n_w4):
+        raise AssertionError(f"expected {n_w4} matmul_w4 launches on the "
+                             f"float32 routes, got {counts}")
+    if not torch.isfinite(want).all():
+        raise AssertionError("non-finite float32 w4 step logits")
+    eager_ms = cuda_ms(lambda: net.prediction(dict(
+        {k: v.clone() for k, v in base.items()}, input=tok, pos=pos)),
+        iters=3, windows=F32_STEP_WINDOWS)
+    graph_c = {k: v.clone() for k, v in base.items()}
+    step = net.compile(dict(graph_c, input=tok, pos=pos), static=graph_c)
+    got = step({"input": tok, "pos": pos})[logits_e]
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    # each replay writes the same cache rows again
+    ms = cuda_ms(lambda: step({"input": tok, "pos": pos}), iters=10,
+                 windows=F32_STEP_WINDOWS)
+    log(f"[llm B fp32] float32 w4 decode step b{LLM_BATCH} (int8 KV, "
+        f"{cfg.layers} layers): captured {ms:.3f} ms (replay), eager "
+        f"{eager_ms:.3f} ms; captured logits equal to the eager step's: "
+        f"{same}; {n_w4} matmul_w4 launches on "
+        f"{sorted(set(route_of_key(k) for k in tap.w4_calls))} "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+    if not same:
+        raise AssertionError("the captured float32 w4 step differs from the "
+                             "eager step")
+    report["llm_b_f32"] = dict(
+        batch=LLM_BATCH, precision="fp32", kv_cache="int8", launches=counts,
+        ms_per_step_captured=ms, ms_per_step_eager=eager_ms,
+        captured_equals_eager=same,
+        launch_shapes=[[list(k), n] for k, n in sorted(tap.w4_calls.items())])
+    return counts, dict(tap.w4_calls)
+
+
+def route_of_key(key):
+    """The route of a launched_llm_shapes matmul_w4 key."""
+    M, K, N, G, dt, bs, _ = key
+    return w4_route(M, K, N, G, getattr(torch, dt.split(".")[-1]), bs)[0]
+
+
 def _flash_bound(q, k, n_pairs, segs):
     """max(bytes / HBM rate, operations / peak): bf16 at the bf16 tensor-core
     rate; float32 as the kernel computes it, three TF32 products a product
@@ -1401,11 +1510,17 @@ def w4_route(M, K, N, G, dtype, bf16_scales):
         M, N, K, G, int(dtype == torch.bfloat16) | 2 * int(bf16_scales))
 
 
+W4_F32_ROUTES = ("small_tf32", "wgmma_tf32")  # float32 x, TF32 tensor cores
+
+
 def w4_kernel_name(route, variant):
     """The kernels line's entry a matmul_w4 row counts for: the M > 16
-    wgmma route has one of its own, for both variants."""
+    wgmma route and the float32 routes have one each of their own, for
+    both variants."""
     if route == "wgmma":
         return "matmul_w4_wgmma"
+    if route in W4_F32_ROUTES:
+        return "matmul_w4_f32"
     return "matmul_w4_v2" if variant == "v2" else "matmul_w4"
 
 
@@ -1493,8 +1608,11 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
     nbytes = (K // 2 * N + (K // g) * N * scales.element_size() + M * K * xb
               + M * N * 4)
     ops = 2 * M * N * K
-    peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
+    if route in W4_F32_ROUTES:  # two TF32 products a float32 product
+        t_o = 2 * ops / PEAK_TF32_OPS * 1e3
+    else:  # bf16 on the tensor cores; float32 w4_rows on the CUDA cores
+        t_o = ops / (PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS) * 1e3
+    t_b = nbytes / PEAK_BYTES * 1e3
     bms, by = (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
     return dict(kernel=kernel, variant=variant, route=route,
                 shape=[M, K, N, g], dtype=str(dtype).split(".")[-1],
@@ -1503,7 +1621,7 @@ def check_w4(M, K, N, G, dtype, gen, calls, variant="v1", bf16_scales=False,
                 ms=ms, plain_ms=plain_ms, v1_ms=v1_ms,
                 weights_differ_from_v1=weights_differ,
                 library_ms=library_ms, library_rel_err=lib_err, library_none_reason=why,
-                dequant_bf16_matmul_ms=dequant_mm_ms,
+                dequantized_matmul_ms=dequant_mm_ms,
                 dequant_then_matmul_ms=dequant_then_mm_ms, bound_ms=bms, bound_by=by,
                 calls_per_run=calls)
 
@@ -1562,8 +1680,9 @@ def log_w4_row(r, calls, tag="matmul_w4"):
         line += (f" ms={r['ms']:.4f} ({r['bound_ms'] / r['ms']:.1%} of the "
                  f"bound) plain={r['plain_ms']:.3f}"
                  + ("" if r["v1_ms"] is None else f" v1={r['v1_ms']:.4f}")
-                 + f" int4pack_mm={lib} dequantized-bf16-matmul="
-                 f"{r['dequant_bf16_matmul_ms']:.4f}"
+                 + f" int4pack_mm={lib} dequantized-"
+                 f"{'bf16' if r['dtype'] == 'bfloat16' else 'float32'}-matmul="
+                 f"{r['dequantized_matmul_ms']:.4f}"
                  + ("" if r["dequant_then_matmul_ms"] is None else
                     f" dequant+matmul={r['dequant_then_matmul_ms']:.4f}")
                  + f" bound={r['bound_ms']:.4f} ({r['bound_by']})")
@@ -1573,18 +1692,19 @@ def log_w4_row(r, calls, tag="matmul_w4"):
     log(line)
 
 
-def attach_wgmma_calls(results, wgmma_calls):
-    """Each M > 16 launch shape of phase 15's counted round (launched_llm_
-    shapes keys) sets calls_per_run on phase 7's timed row of that shape,
-    which the kernels line's matmul_w4_wgmma entry then sums; a shape
-    without a timed row fails."""
-    for (M, K, N, G, dt, bs, variant), n in wgmma_calls.items():
-        rows = [r for r in results if r["kernel"] == "matmul_w4_wgmma"
+def attach_w4_calls(results, w4_calls, kernel, run):
+    """Each launch shape (launched_llm_shapes keys) of `kernel` in a
+    counted run (phase 15's round for matmul_w4_wgmma, phase 6 b's step
+    for matmul_w4_f32) sets calls_per_run on phase 7's timed row of that
+    shape, which the kernels line's entry then sums; a shape without a
+    timed row fails."""
+    for (M, K, N, G, dt, bs, variant), n in w4_calls.items():
+        rows = [r for r in results if r["kernel"] == kernel
                 and r["shape"] == [M, K, N, G] and r["ms"] is not None
                 and r["dtype"] == dt.split(".")[-1] and r["bf16_scales"] == bs
                 and r["variant"] == variant]
         if not rows:
-            raise AssertionError(f"no timed matmul_w4 row for phase 15's "
+            raise AssertionError(f"no timed matmul_w4 row for {run}'s "
                                  f"launch {M}x{K}->{N} G{G} {dt} {variant}")
         rows[0]["calls_per_run"] = n
 
@@ -1605,27 +1725,83 @@ def attach_tuner_calls(results, n):
     rows[0]["calls_per_run"] = n
 
 
-def check_wgmma_routes(results):
-    """Every bf16 row with M > 16 and a group that is a multiple of 64 took
-    the wgmma route."""
+def w4_route_wanted(r):
+    """The route a matmul_w4 row's shape asks for: with a group that is a
+    multiple of 32, bf16 x on small (M <= 16) or wgmma, float32 x on
+    small_tf32 or wgmma_tf32; rows for any other group."""
+    M, G = r["shape"][0], r["shape"][3]
+    if G % 32:
+        return "rows"
+    route = "small" if M <= 16 else "wgmma"
+    return route if r["dtype"] == "bfloat16" else route + "_tf32"
+
+
+def check_w4_routes(results):
+    """Every matmul_w4 row took the route its shape asks for."""
     wrong = [r for r in results if r["kernel"].startswith("matmul_w4")
-             and r["dtype"] == "bfloat16" and r["shape"][0] > 16
-             and r["shape"][3] % 64 == 0 and r["route"] != "wgmma"]
+             and r["route"] != w4_route_wanted(r)]
     if wrong:
-        raise AssertionError(f"bf16 matmul_w4 rows with M > 16 off the wgmma "
-                             f"route: {wrong}")
+        raise AssertionError(f"matmul_w4 rows off their route: {wrong}")
 
 
 # every group the quantizer writes, beside the path's 128: 32 (K 2048), K
-# itself (K = G = 96), 96 over K 1920, at the decode shape (M 8, N 8192),
-# bf16 x with bf16 scales as a bf16 net hands them over, and float32 x
+# itself (K = G = 96), 96 over K 1920, at the decode shape (M 8, N 8192)
+# and at M 4096 (the half-chunk routes: small, wgmma, small_tf32,
+# wgmma_tf32), bf16 x with bf16 scales as a bf16 net hands them over, and
+# float32 x
 W4_GROUP_CASES = [  # (M, K, N, G, dtype, scales in bf16, calls per run)
     (LLM_BATCH, 2048, 8192, 128, torch.bfloat16, True, 0),
     (LLM_BATCH, 2048, 8192, 32, torch.bfloat16, True, 0),
     (LLM_BATCH, 96, 8192, 96, torch.bfloat16, True, 0),
     (LLM_BATCH, 1920, 8192, 96, torch.bfloat16, True, 0),
     (LLM_BATCH, 2048, 8192, 32, torch.float32, False, 0),
+    (4096, 2048, 8192, 32, torch.bfloat16, True, 0),
+    (4096, 1920, 8192, 96, torch.bfloat16, True, 0),
+    (4096, 2048, 8192, 32, torch.float32, False, 0),
 ]
+
+
+def route_edge_w4_cases(cfg, f32=True):
+    """The edges of the half-chunk and float32 routes, checked untimed:
+    with float32 x (`f32`; one kernel serves v1 and v2 there) M 1, 16, 17
+    and 130 with bf16 and float32 scales, a ragged and unaligned N (the
+    byte-by-byte copies), K = G = 128 and G 64 on each float32 route, the
+    tensor-parallel halves (N / 2 and K / 2 of the two MLP projections) of
+    a float32 step and of a bucket-512 prefill; with both dtypes a second
+    half-chunk past K (K = G = 96, K 1920 at G 96 and M > 16), G 32 through
+    the byte-by-byte copies, and groups the chunked routes cannot take (G
+    48, K = G = 80) on w4_rows."""
+    E, F_ = cfg.embed, 4 * cfg.embed
+    f32t, bf16 = torch.float32, torch.bfloat16
+    rows = [  # (M, K, N, G, dtype, scales in bf16, calls)
+        (130, 96, F_, 96, bf16, True, 0),
+        (130, 1920, F_, 96, bf16, False, 0),
+        (8, E, 1003, 32, bf16, True, 0),
+        (130, E, 1003, 32, bf16, False, 0),
+        (8, 96, 520, 48, bf16, True, 0),
+        (130, 80, 520, 80, bf16, False, 0),
+    ]
+    if f32:
+        rows += [
+            *[(m, E, F_, 128, f32t, bs, 0) for m in (1, 16, 17, 130)
+              for bs in (True, False)],
+            (8, E, 1003, 128, f32t, False, 0),
+            (130, E, 1003, 128, f32t, True, 0),
+            (8, 128, F_, 128, f32t, True, 0),
+            (4096, 128, F_, 128, f32t, False, 0),
+            (8, E, F_, 64, f32t, False, 0),
+            (4096, E, F_, 64, f32t, True, 0),
+            *[(m, k, n, 128, f32t, False, 0) for m in (LLM_BATCH, LLM_BATCH * 512)
+              for k, n in ((E, F_ // 2), (F_ // 2, E))],
+            (8, 96, F_, 96, f32t, False, 0),
+            (130, 96, F_, 96, f32t, True, 0),
+            (130, 1920, F_, 96, f32t, False, 0),
+            (8, E, 1003, 32, f32t, True, 0),
+            (130, E, 1003, 32, f32t, False, 0),
+            (8, 96, 520, 48, f32t, False, 0),
+            (130, 80, 520, 80, f32t, True, 0),
+        ]
+    return rows
 
 
 def llm_kernels(report, cfg):
@@ -1724,7 +1900,11 @@ def llm_kernels(report, cfg):
         (B, 128, F_, 128, bf16, True, 0),
         # the M > 16 route with float32 scales (v1's float32 dequant)
         (4096, E, F_, 128, bf16, False, 0),
+        # float32 x: phase 6 b's step (its three shapes; the step's launches
+        # set their calls), M 5 with bf16 scales, a prefill's M 4096
+        (B, E, F_, 128, f32, False, 0),
         (B, F_, E, 128, f32, False, 0),
+        (B, E, cfg.vocab, 128, f32, False, 0),
         (5, E, F_, 128, f32, True, 0),
         (4096, E, F_, 128, f32, False, 0),
         # the M > 16 route at the bucket admissions of phases 15 and 23,
@@ -1751,14 +1931,15 @@ def llm_kernels(report, cfg):
     for m, k, n, grp, dt, bs, calls in w4_cases:
         results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs))
         log_w4_row(results[-1], calls)
-    for m, k, n, grp, dt, bs, calls in wgmma_edge_w4_cases(cfg):
+    for m, k, n, grp, dt, bs, calls in (wgmma_edge_w4_cases(cfg)
+                                        + route_edge_w4_cases(cfg)):
         results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs,
                                 timed=False))
         log_w4_row(results[-1], calls)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
-    check_wgmma_routes(results)
+    check_w4_routes(results)
     split = [r for r in results if r["kernel"].startswith("matmul_w4")
              and r["shape"][:3] == [LLM_BATCH * 64, F_, E] and r["dtype"] == "bfloat16"]
     if not split or split[0]["splits"] < 2:
@@ -1779,6 +1960,8 @@ def w4_v2_kernels(report, cfg):
         (B, F_, E, 128, bf16, True, cfg.layers * NEW),
         (B, E, cfg.vocab, 128, bf16, True, NEW),
         (B, F_, E, 128, f32, False, 0),
+        (5, E, F_, 128, f32, True, 0),
+        (4096, E, F_, 128, f32, False, 0),
         (4096, E, F_, 128, bf16, True, 0),
         # v2 with float32 scales at M > 16, where its weights differ from
         # v1's (phase 7 holds v1 at the same shape)
@@ -1795,14 +1978,15 @@ def w4_v2_kernels(report, cfg):
         results.append(check_w4(m, k, n, grp, dt, gen, calls, variant="v2",
                                 bf16_scales=bs))
         log_w4_row(results[-1], calls, "matmul_w4_v2")
-    for m, k, n, grp, dt, bs, calls in wgmma_edge_w4_cases(cfg):
+    for m, k, n, grp, dt, bs, calls in (wgmma_edge_w4_cases(cfg)
+                                        + route_edge_w4_cases(cfg, f32=False)):
         results.append(check_w4(m, k, n, grp, dt, gen, calls, variant="v2",
                                 bf16_scales=bs, timed=False))
         log_w4_row(results[-1], calls, "matmul_w4_v2")
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
-    check_wgmma_routes(results)
+    check_w4_routes(results)
     report["w4_v2_kernel_configs"] = results
     return results
 
@@ -1845,21 +2029,33 @@ def llm_cpu_gpu(report, cfg_full):
         raise AssertionError("the card's w4 step did not run matmul_w4")
     dc = ak.Net(g4, "bf16", device="cpu").prediction(
         {k: v.clone() for k, v in feed.items()})[g4.outputs[0]]
+    # the same step in float32: on the card the float32 routes
+    reset_counts()
+    df = ak.Net(g4, "fp32", device="cuda").prediction(
+        {k: v.clone().cuda() for k, v in feed.items()})[g4.outputs[0]]
+    torch.cuda.synchronize()
+    if read_counts()["matmul_w4_f32"] != 2 * cfg.layers + 1:
+        raise AssertionError("the card's float32 w4 step did not run the "
+                             "float32 routes")
+    dcf = ak.Net(g4, "fp32", device="cpu").prediction(
+        {k: v.clone() for k, v in feed.items()})[g4.outputs[0]]
 
     res = {}
-    for name, g_, c_ in (("prefill", lg, lc), ("w4_step", dg, dc)):
+    for name, g_, c_, tol in (("prefill", lg, lc, LLM_TOL),
+                              ("w4_step", dg, dc, LLM_TOL),
+                              ("w4_step_fp32", df, dcf, F32_W4_TOL)):
         gf, cf = g_[:, 0].float().cpu(), c_[:, 0].float()
         scale = float(cf.abs().max())
         err = float((gf - cf).abs().max())
         top2 = torch.topk(cf, 2, dim=-1).values
         gap = top2[:, 0] - top2[:, 1]
         same = gf.argmax(-1) == cf.argmax(-1)
-        decided = gap > LLM_TOL * scale
+        decided = gap > tol * scale
         log(f"[cpu/gpu llm] {name}: logits max diff {err:.4g} "
-            f"({err / scale:.3g} of the largest, tolerance {LLM_TOL}), greedy "
+            f"({err / scale:.3g} of the largest, tolerance {tol}), greedy "
             f"tokens gpu {gf.argmax(-1).tolist()} cpu {cf.argmax(-1).tolist()}, "
             f"top-2 gap {gap.tolist()}")
-        if err > LLM_TOL * scale:
+        if err > tol * scale:
             raise AssertionError(f"{name}: GPU and CPU logits differ by {err}")
         if not bool(same[decided].all()):
             raise AssertionError(f"{name}: greedy tokens differ where decided")
@@ -2794,11 +2990,11 @@ def scheduler_phase(report, cfg, params, card):
         with tap:
             got, wall_s = _serve(sched, prompts, stops)
         counts = read_counts()
-        # the launches of the wgmma route (bf16 x, M > 16, G % 64 == 0: the
+        # the launches of the wgmma route (bf16 x, M > 16, G % 32 == 0: the
         # bucket admissions' projections), by shape
         wgmma_calls = {k: n for k, n in tap.w4_calls.items()
                        if k[0] > 16 and k[4] == str(torch.bfloat16)
-                       and k[3] % 64 == 0}
+                       and k[3] % 32 == 0}
         log(f"[sched] launches while serving (warm-up and capture of the "
             f"window graph, the eager bucket prefills; a replay counts "
             f"nothing): {counts}; matmul_w4 at M > 16: "
@@ -5930,6 +6126,12 @@ def parallel_phase(report, card):
             bad.append(f"rank {r['rank']}: TP ResNet launches {rn['launches']}")
         if ll["step_launches"]["matmul_w4"] == 0:
             bad.append(f"rank {r['rank']}: no matmul_w4 launch in the TP step")
+        for st in ll["steps"]:
+            if st["precision"] == "fp32" and not (
+                    0 < st["launches"]["matmul_w4"]
+                    == st["launches"]["matmul_w4_f32"]):
+                bad.append(f"rank {r['rank']}: the float32 TP step's matmul_w4 "
+                           f"launches off the float32 routes: {st['launches']}")
         if (ll["sched_launches"]["flash_attention"] == 0
                 or ll["sched_launches"]["matmul_w4"] == 0):
             bad.append(f"rank {r['rank']}: TP scheduler launches "
@@ -5987,6 +6189,10 @@ def parallel_phase(report, card):
         paths[f"tp2 ResNet-50 int8 b{TP_RESNET_BATCH} forward, rank {r['rank']}"] = \
             r["resnet"]["launches"]
         paths[f"tp2 w4 decode step, rank {r['rank']}"] = r["llm"]["step_launches"]
+        for st in r["llm"]["steps"]:
+            if st["precision"] == "fp32":
+                paths[f"tp2 float32 w4 decode step ({st['layers']} layers), "
+                      f"rank {r['rank']}"] = st["launches"]
         paths[f"tp2 scheduler ({len(TP_SCHED_LENGTHS)} requests), rank "
               f"{r['rank']}"] = r["llm"]["sched_launches"]
     paths[f"pipeline ResNet-50 int8 b{BATCH}, 4 stages x 4 microbatches"] = \
@@ -6109,9 +6315,13 @@ def main(argv) -> int:
         "flash_attention"]
     f32_prefill_counts = float32_session_prefill(report, cfg, params, card)
     counts["matmul_w4"] = llm_path_b(report, cfg, params, card)["matmul_w4"]
+    f32_step_counts, f32_calls = llm_path_b_f32(report, cfg, params, card)
+    counts["matmul_w4_f32"] = f32_step_counts["matmul_w4_f32"]
     units.update(flash_attention="one generate (its 512-token prefill)",
-                 matmul_w4=f"{NEW} w4 decode steps")
+                 matmul_w4=f"{NEW} w4 decode steps",
+                 matmul_w4_f32="one float32 w4 decode step (phase 6 b)")
     results += llm_kernels(report, cfg)
+    attach_w4_calls(results, f32_calls, "matmul_w4_f32", "phase 6 b")
     llm_cpu_gpu(report, cfg)
     log(f"[time] LLM phases done at {time.perf_counter() - t_start:.0f} s")
 
@@ -6144,7 +6354,7 @@ def main(argv) -> int:
     counts["matmul_w4_wgmma"] = report["scheduler_launches"]["matmul_w4_wgmma"]
     units["matmul_w4_wgmma"] = ("phase 15's counted round (its bucket "
                                 "admissions' MLP projections)")
-    attach_wgmma_calls(results, wgmma_calls)
+    attach_w4_calls(results, wgmma_calls, "matmul_w4_wgmma", "phase 15")
     log(f"[time] scheduler phase done at {time.perf_counter() - t_start:.0f} s")
 
     # ----------------------------------------------------- 16. speculative

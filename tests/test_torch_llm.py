@@ -220,7 +220,11 @@ def test_flash_attention_ragged_valid_rows(rng, interpret, dtype):
                                      (33, 256, 520, 64), (1, 512, 512, 512),
                                      # M > 16: the edges of the wgmma route
                                      (17, 256, 520, 64), (130, 512, 264, 128),
-                                     (256, 256, 1024, 128)])
+                                     (256, 256, 1024, 128),
+                                     # groups the half-chunk routes take
+                                     # beside multiples of 64: G 32 at
+                                     # M > 16, G 96 (a chunk across groups)
+                                     (33, 256, 520, 32), (17, 288, 136, 96)])
 def test_matmul_w4_plain_matches_pallas(rng, dtype, M, K, N, G):
     from anakin_tpu.quant.quantize import _w4_group_quantize
 
@@ -732,15 +736,17 @@ def test_kernel_sources_and_launch_counters():
     assert {"flash_attention", "matmul_w4"} <= set(_build.SOURCES)
     def counts():
         return (flash_attention.launches, matmul_w4.launches,
-                matmul_w4.launches_v2, matmul_w4.launches_wgmma)
+                matmul_w4.launches_v2, matmul_w4.launches_wgmma,
+                matmul_w4.launches_f32)
 
     before = counts()
     flash_attention(*(torch.zeros((1, 2, 4, 32)),) * 3)
     for variant in ("v1", "v2"):
         for m in (2, 17):
-            matmul_w4(torch.zeros((m, 128), dtype=torch.bfloat16),
-                      torch.zeros((64, 8), dtype=torch.int8),
-                      torch.ones((1, 8)), group=128, variant=variant)
+            for dtype in (torch.bfloat16, torch.float32):
+                matmul_w4(torch.zeros((m, 128), dtype=dtype),
+                          torch.zeros((64, 8), dtype=torch.int8),
+                          torch.ones((1, 8)), group=128, variant=variant)
     assert counts() == before
 
 
