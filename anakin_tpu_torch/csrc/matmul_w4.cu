@@ -188,11 +188,24 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using ak::desc_sw32;
+using ak::desc_sw64;
+using ak::fence_acc;
+using ak::mbar_arrive;
+using ak::mbar_expect_tx;
+using ak::mbar_init;
+using ak::mbar_wait;
+using ak::tensor_map;
+using ak::tma_2d;
+using ak::wgmma_bf16_n128;
+using ak::wgmma_tf32_n64;
 
 struct Args {
   const void* x;
@@ -682,87 +695,6 @@ static_assert(WBM * WLDC * 4 <= WSTAGES * wslot(false), "the output tile fits th
 // banks
 __device__ __forceinline__ int wswz(int r, int h) {
   return (h >> 3) * WWT + r * 128 + 16 * ((h & 7) ^ (r & 7));
-}
-
-// wgmma shared-memory descriptors of a K-major tile: 8-row groups 8 x the
-// row bytes apart (SBO), layout type 2 (SWIZZLE_64B, 64-byte rows) or 3
-// (SWIZZLE_32B, 32-byte rows)
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (32ull << 32) | (2ull << 62);
-}
-__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (16ull << 32) | (3ull << 62);
-}
-
-// wgmma m64n128k16, float32 += bf16 x bf16, A from registers (a warp's 16
-// rows in the mma.sync m16n8k16 A-fragment order), B K-major from a
-// shared-memory descriptor
-#define AK_F8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : AK_F8(0), AK_F8(8), AK_F8(16), AK_F8(24), AK_F8(32), AK_F8(40), AK_F8(48), AK_F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// wgmma m64n64k8, float32 += tf32 x tf32, A from registers (a warp's 16
-// rows in the mma.sync m16n8k8 A-fragment order), B K-major from a
-// shared-memory descriptor; scale_d 0 writes d = A B
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : AK_F8(0), AK_F8(8), AK_F8(16), AK_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-#undef AK_F8
-
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// mbarrier and TMA helpers (shared-memory addresses as 32-bit ints)
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-// the box at (c0, c1) of a 2-D tensor map into shared memory at dst; its
-// bytes complete on bar
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap& map, int c0,
-                                       int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(bar) : "memory");
 }
 
 // Without a.vec (N or a pointer not 16-byte aligned) the threads of a
@@ -1479,43 +1411,6 @@ int wgmma_splits(int M, int N, int K, int bm) {
   s = s > MAX_SPLITS ? MAX_SPLITS : s;
   s = s > n_chunks(K) ? n_chunks(K) : s;
   return s < 1 ? 1 : (int)s;
-}
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
-// (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D tensor map of rows x cols elements (row stride `pitch` bytes) in
-// boxes of box_rows x box_cols, out-of-range elements read as zero.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                size_t cols, size_t rows, size_t pitch, int box_cols, int box_rows,
-                CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {pitch};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The weights' and scales' tensor maps of the wgmma routes: packed [K/2,

@@ -10,12 +10,16 @@ grouped-query heads (H a multiple of Hkv; query head h reads kv head
 h // (H // Hkv)), so the caller need not copy them.  Segment ids are
 [B, Sq] and [B, Sk] int32, given together or not at all.
 
-On a CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/flash_attention.cu` (bf16 through mma.sync; float32 through split-TF32
-mma.sync, three TF32 products a float32 product; the file's header gives the
-design and the tolerance against `mha_reference`).  `flash_attention.
-launches` counts every launch, `flash_attention.launches_f32` those of the
-float32 route beside it.
+On a CUDA tensor it launches a hand-written Hopper kernel of
+`csrc/flash_attention.cu`, on the route its dtype and head dim choose
+(`route`): bf16 at D 64, 128 and 256 through `flash_wgmma` (TMA copies, a
+producer warpgroup and one or two consumer warpgroups on wgmma), bf16 at D
+32, 80 and 96 through `flash_bf16` (mma.sync), float32 through `flash_tf32`
+(split-TF32 mma.sync, three TF32 products a float32 product).  The file's
+header gives each design and the tolerance against `mha_reference`.
+`flash_attention.launches` counts every launch, `flash_attention.
+launches_f32` those of the float32 route and `flash_attention.
+launches_wgmma` those of `flash_wgmma` beside it.
 On a CPU tensor it runs `mha_reference`, the JAX package's dense golden
 model in plain PyTorch.  Both mask a ragged S themselves, so no length has
 to be padded.
@@ -32,13 +36,15 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_op", "mha_reference",
-           "MASK_VALUE", "head_dims", "takes_head_dim"]
+           "MASK_VALUE", "ROUTES", "head_dims", "route", "takes_head_dim"]
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # head dims the CUDA kernel is instantiated for; the float32 route's q tile
 # and accumulator at 256 would not fit beside its split operands
 _HEAD_DIMS = {torch.bfloat16: (32, 64, 80, 96, 128, 256),
               torch.float32: (32, 64, 80, 96, 128)}
+# the kernel's routes, as `ak_flash_attention_route` numbers them
+ROUTES = ("flash_wgmma", "flash_bf16", "flash_tf32")
 
 
 def head_dims(dtype) -> tuple:
@@ -108,7 +114,23 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    for fn in (lib.ak_flash_attention_route, lib.ak_flash_attention_block_rows):
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
     return lib
+
+
+def route(dtype, B: int, H: int, Hkv: int, Sq: int, D: int):
+    """(route name, query rows a block holds) of a CUDA launch at these
+    shapes, as the built kernel chooses them (it needs the CUDA build).
+    The route follows the dtype and D alone; the rows follow the grid."""
+    lib, bf16 = _lib(), int(dtype == torch.bfloat16)
+    code = lib.ak_flash_attention_route(bf16, B, H, Hkv, Sq, D)
+    if code < 0:
+        raise ValueError(f"no flash_attention route takes head dim {D} "
+                         f"in {dtype}")
+    return ROUTES[code], lib.ak_flash_attention_block_rows(bf16, B, H, Hkv,
+                                                          Sq, D)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -164,11 +186,15 @@ def _flash_attention(q, k, v, q_segment_ids, kv_segment_ids, *, causal,
     flash_attention.launches += 1
     if q.dtype == torch.float32:
         flash_attention.launches_f32 += 1
+    elif ROUTES[lib.ak_flash_attention_route(1, B, H, k.shape[1], Sq, D)] \
+            == "flash_wgmma":
+        flash_attention.launches_wgmma += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_f32 = 0
+flash_attention.launches_wgmma = 0
 
 
 @torch.library.custom_op("anakin_tpu_torch::flash_attention", mutates_args=())

@@ -61,7 +61,9 @@ Phases:
               scope, the control, must exceed that (TF32);
   5. llm A    `GenerationSession(batch 8, bf16, int8 KV cache)` generates 32
               greedy tokens after a 512-token prompt: the prefill (bucket
-              512, so flash) must launch flash_attention 16 times; tokens in
+              512, so flash) must launch flash_attention 16 times, all on
+              flash_wgmma (`launches_wgmma`; so must phase 15's admissions,
+              phase 16's prefills and phase 17's tuned forward); tokens in
               range, logits finite; prefill ms, decode ms per token step and
               tokens/s from CUDA events; one profiled decode step; then
               (5 b) the session's default precision, float32, at b8 on the
@@ -85,7 +87,12 @@ Phases:
               no causal mask), and the head dims 80, 96 and 256 (ragged
               lengths too); the float32 route at D = 32 (an odd group, S
               129), 64, 80 (segment ids), 96 and 128, and non-causal
-              cross-attention (S 300 over 700 keys); matmul_w4 with bf16
+              cross-attention (S 300 over 700 keys) in both dtypes, bf16 D
+              = 64 with ragged lengths; each flash row printing its route
+              (`ak_flash_attention_route`: flash_wgmma for bf16 at D 64,
+              128 and 256, flash_bf16 for the other bf16 head dims,
+              flash_tf32 for float32; `check_flash_routes` holds each row
+              to its shape) and SDPA's time beside its own; matmul_w4 with bf16
               scales (as the net hands
               them over) and float32 ones, M = 1, 5, 16 (the edges of the
               M <= 16 route) and 4096, N = 1003 (the byte-by-byte path), K
@@ -438,6 +445,26 @@ def gpu_name_and_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def check_ptxas(out: str, kernel: str):
+    """ptxas's report (`out`, empty where the library was built before) of
+    every instantiation of `kernel`: no stack frame, no spill, and no note
+    of ptxas's that it serialized its wgmma or ignored a setmaxnreg
+    (C75xx)."""
+    lines, bad, name = out.splitlines(), [], None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and kernel in name and "stack frame" in line and \
+                re.findall(r"(\d+) bytes", line) != ["0", "0", "0"]:
+            bad.append(f"{name}: {line.strip()}")
+        if re.search(r"\(C75\d\d\)", line) and kernel in line and (
+                "serialized" in line or "ignored" in line):
+            bad.append(line.strip())
+    if bad:
+        raise AssertionError(f"ptxas on {kernel}: " + "; ".join(bad))
 
 
 def sass_loops(lib_path: str):
@@ -1056,6 +1083,7 @@ def llm_path_a(report, cfg, params, card):
         f"{time.perf_counter() - t0:.1f} s")
 
     reset_counts()
+    wgmma0 = wgmma_flash_launches()
     t0 = time.perf_counter()
     tokens = sess.generate(prompt, NEW)
     torch.cuda.synchronize()
@@ -1065,6 +1093,7 @@ def llm_path_a(report, cfg, params, card):
     if counts != dict(no_launches(), flash_attention=cfg.layers):
         raise AssertionError(f"expected {cfg.layers} flash_attention launches "
                              f"in the prefill, got {counts}")
+    require_wgmma_flash("the prefill", counts, wgmma_flash_launches() - wgmma0)
     new = tokens[:, PROMPT:]
     if tokens.shape != (LLM_BATCH, PROMPT + NEW) or new.min() < 0 \
             or new.max() >= cfg.vocab:
@@ -1412,10 +1441,12 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
     `Sk` (default S) gives k and v another length: cross-attention.  The
     library call is SDPA on the kv heads repeated, with
     `torch.backends.cuda.matmul.allow_tf32` False.  Float32 rows are
-    named flash_attention_f32 (the kernels line's entry of that route)."""
+    named flash_attention_f32 (the kernels line's entry of that route).
+    `route` is the kernel's route at the shape and `block_rows` the query
+    rows a block of it holds."""
     import torch.nn.functional as F
     from anakin_tpu_torch.kernels.flash_attention import (flash_attention,
-                                                          mha_reference)
+                                                          mha_reference, route)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -1432,7 +1463,8 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
         allowed &= (torch.arange(Sk, device="cuda")[None, :]
                     <= torch.arange(S, device="cuda")[:, None])[None]
     n_pairs = int(allowed.sum())
-    launches = flash_attention.launches, flash_attention.launches_f32
+    launches = (flash_attention.launches, flash_attention.launches_f32,
+                flash_attention.launches_wgmma)
     got = flash_attention(q, k, v, segs, segs, causal=causal)
     want = mha_reference(q, k, v, segs, segs, causal=causal)
     torch.cuda.synchronize()
@@ -1463,11 +1495,14 @@ def check_flash(B, H, Hkv, S, D, dtype, causal, lengths, gen, calls,
             library_ms = graph_ms(lib, iters=iters)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = saved
-    flash_attention.launches, flash_attention.launches_f32 = launches
+    (flash_attention.launches, flash_attention.launches_f32,
+     flash_attention.launches_wgmma) = launches
     bms, by = _flash_bound(q, k, n_pairs, segs)
+    flash_route, block_rows = route(dtype, B, H, Hkv, S, D)
     return dict(kernel=("flash_attention" if dtype == torch.bfloat16
                         else "flash_attention_f32"),
-                shape=[B, H, Hkv, S, D], sk=Sk,
+                shape=[B, H, Hkv, S, D], sk=Sk, route=flash_route,
+                block_rows=block_rows,
                 dtype=str(dtype).split(".")[-1], causal=causal,
                 lengths=lengths, ok=ok, max_abs_err=float(d.max()),
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1736,6 +1771,39 @@ def w4_route_wanted(r):
     return route if r["dtype"] == "bfloat16" else route + "_tf32"
 
 
+def flash_route_wanted(r):
+    """The route a flash row's shape asks for: float32 on flash_tf32; bf16
+    on flash_wgmma where D is whole 64-column slabs (64, 128, 256), else on
+    flash_bf16 (mma.sync)."""
+    if r["dtype"] == "float32":
+        return "flash_tf32"
+    return "flash_wgmma" if r["shape"][4] in (64, 128, 256) else "flash_bf16"
+
+
+def check_flash_routes(results):
+    """Every flash_attention row took the route its shape asks for."""
+    wrong = [r for r in results if r["kernel"].startswith("flash_attention")
+             and r["route"] != flash_route_wanted(r)]
+    if wrong:
+        raise AssertionError(f"flash_attention rows off their route: {wrong}")
+
+
+def wgmma_flash_launches():
+    """flash_attention's launches on its flash_wgmma route so far."""
+    from anakin_tpu_torch.kernels.flash_attention import flash_attention
+
+    return flash_attention.launches_wgmma
+
+
+def require_wgmma_flash(where, counts, wgmma):
+    """Every bf16 flash launch of a counted run (`counts`) went through
+    flash_wgmma (`wgmma` of them did): the path's head dims are the route's."""
+    bf16 = counts["flash_attention"] - counts["flash_attention_f32"]
+    if wgmma != bf16:
+        raise AssertionError(f"{where}: {bf16} bf16 flash launches, {wgmma} "
+                             f"of them on flash_wgmma")
+
+
 def check_w4_routes(results):
     """Every matmul_w4 row took the route its shape asks for."""
     wrong = [r for r in results if r["kernel"].startswith("matmul_w4")
@@ -1822,8 +1890,9 @@ def llm_kernels(report, cfg):
         # the bf16 kernel's other paths: one query head per kv head (128-row
         # blocks of one head), four per kv head, an odd group, other head
         # dims, S = 128 k + 1 (a one-row last q tile and kv tile), no causal
-        # mask, segment ids; at b8 with two row tiles a warp, at b2 with one
-        # (the grid would hold fewer than two blocks an SM)
+        # mask, segment ids; at b8 with two consumer warpgroups a block
+        # (flash_wgmma; flash_bf16: two row tiles a warp), at b2 with one
+        # (the grid would hold fewer blocks than SMs)
         (B, H, H, PROMPT, D, torch.bfloat16, True, None, 0),
         (B, H, 4, PROMPT, D, torch.bfloat16, True, None, 0),
         (B, H, Hkv, PROMPT, 64, torch.bfloat16, True, None, 0),
@@ -1834,8 +1903,8 @@ def llm_kernels(report, cfg):
         (2, 6, 2, 129, 32, torch.bfloat16, True, None, 0),
         (2, H, Hkv, 385, D, torch.bfloat16, True, None, 0),
         # the head dims of public configs beside 32, 64 and 128: 80 (an odd
-        # number of 16-wide k steps), 96, 256 (one row tile a warp); ragged
-        # lengths, so only the rows below each length are compared
+        # number of 16-wide k steps) and 96 on flash_bf16, 256 on flash_wgmma
+        # (one consumer a block); ragged lengths
         (B, H, Hkv, PROMPT, 80, torch.bfloat16, True, None, 0),
         (B, H, Hkv, PROMPT, 96, torch.bfloat16, True, None, 0),
         (B, H, Hkv, PROMPT, 256, torch.bfloat16, True, None, 0),
@@ -1845,7 +1914,12 @@ def llm_kernels(report, cfg):
         # phase 15's bucket admissions from 512 on (512 is the path's row)
         *[(B, H, Hkv, L, D, torch.bfloat16, True, None, 0)
           for L in (768, 1024, 1536)],
+        # flash_wgmma at D 64 with ragged lengths (one consumer a block),
+        # and non-causal cross-attention (Sk 700 below)
+        (2, H, Hkv, 300, 64, torch.bfloat16, True, [300, 173], 0),
+        (2, H, Hkv, 300, D, torch.bfloat16, False, None, 0),
     ]
+    sk = {len(flash_cases) - 1: 700}  # row index -> Sk
     # the shapes of phases 16 and 17, which the kernels line does not sum
     # (its unit is path A's generate): (row, where, launches there)
     dH = SPEC_DRAFT["heads"]
@@ -1871,9 +1945,8 @@ def llm_kernels(report, cfg):
     flash_cases += [row for row, _, _ in elsewhere]
     # the float32 route at every head dim it takes beside 96 and 128 (D 32
     # with an odd group and a ragged tile, D 64 with two row tiles a warp,
-    # D 80 with segment ids), and non-causal cross-attention (Sk != Sq):
-    # row index -> Sk
-    sk = {len(flash_cases) + 3: 700}
+    # D 80 with segment ids), and non-causal cross-attention (Sk != Sq)
+    sk[len(flash_cases) + 3] = 700
     flash_cases += [
         (2, 6, 2, 129, 32, torch.float32, True, None, 0),
         (B, H, Hkv, PROMPT, 64, torch.float32, True, None, 0),
@@ -1922,11 +1995,12 @@ def llm_kernels(report, cfg):
         results.append(r)
         log(f"[kernel] flash_attention {r['shape']} {r['dtype']} causal={causal}"
             f" lengths={lens}" + (f" Sk={r['sk']}" if i in sk else "")
-            + f" x{calls}"
+            + f" x{calls} route={r['route']} rows={r['block_rows']}"
             + (f" (x{where[i][1]} in {where[i][0]})" if i in where else "")
             + f" err={r['max_abs_err']:.3g} ok={r['ok']} "
             f"ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
-            f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} ({r['bound_by']}; "
+            f"sdpa={r['library_ms']:.4f} ({r['library_ms'] / r['ms']:.2f}x this) "
+            f"bound={r['bound_ms']:.4f} ({r['bound_by']}; "
             f"{r['bound_ms'] / r['ms']:.1%} of it) ({time.perf_counter() - t0:.1f} s)")
     for m, k, n, grp, dt, bs, calls in w4_cases:
         results.append(check_w4(m, k, n, grp, dt, gen, calls, bf16_scales=bs))
@@ -1939,6 +2013,7 @@ def llm_kernels(report, cfg):
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel differs from its plain version: {bad}")
+    check_flash_routes(results)
     check_w4_routes(results)
     split = [r for r in results if r["kernel"].startswith("matmul_w4")
              and r["shape"][:3] == [LLM_BATCH * 64, F_, E] and r["dtype"] == "bfloat16"]
@@ -2975,6 +3050,7 @@ def scheduler_phase(report, cfg, params, card):
         sched.fuse_window = SCHED_WINDOW
         tap = launched_llm_shapes()
         reset_counts()
+        wgmma0 = wgmma_flash_launches()
         # one request of a window's tokens: its first window captures the
         # graph that every later window replays
         t0 = time.perf_counter()
@@ -3009,6 +3085,8 @@ def scheduler_phase(report, cfg, params, card):
             raise AssertionError(f"expected flash_attention and matmul_w4 "
                                  f"launches only, the M > 16 ones on the "
                                  f"wgmma route, got {counts}")
+        require_wgmma_flash("the admissions", counts,
+                            wgmma_flash_launches() - wgmma0)
         for i, (g, r) in enumerate(zip(got, ref)):
             want = r
             if i in stops:
@@ -3151,6 +3229,7 @@ def speculative_phase(report, cfg, params, card):
         before = {c: getattr(spec, c) for c in (
             "rounds", "drafts_accepted", "drafts_proposed", "tokens_committed")}
         reset_counts()
+        wgmma0 = wgmma_flash_launches()
         t0 = time.perf_counter()
         out = (greedy.generate(prompt, SPEC_NEW) if path == "greedy"
                else getattr(spec, path)(prompt, SPEC_NEW))
@@ -3161,6 +3240,8 @@ def speculative_phase(report, cfg, params, card):
         if counts != dict(no_launches(), flash_attention=want):
             raise AssertionError(f"{path}: expected {want} flash_attention "
                                  f"launches (the prefills), got {counts}")
+        require_wgmma_flash(f"{path}'s prefills", counts,
+                            wgmma_flash_launches() - wgmma0)
         outs[path] = out
         delta = {c: getattr(spec, c) - v for c, v in before.items()}
         rate = (delta["drafts_accepted"] / delta["drafts_proposed"]
@@ -3355,6 +3436,7 @@ def tuned_prefill_phase(report, card):
         net = ak.Net(graph, precision="bf16")
         net.prediction({"input": x})
         reset_counts()
+        wgmma0 = wgmma_flash_launches()
         y = net.prediction({"input": x})[graph.outputs[0]]
         torch.cuda.synchronize()
         counts = read_counts()
@@ -3362,6 +3444,8 @@ def tuned_prefill_phase(report, card):
         if counts != dict(no_launches(), flash_attention=want):
             raise AssertionError(f"{name}: expected {want} flash launches, "
                                  f"got {counts}")
+        require_wgmma_flash(f"the {name} forward", counts,
+                            wgmma_flash_launches() - wgmma0)
         if tuple(y.shape) != (LONGCTX_BATCH, S, cfg.vocab) or \
                 not torch.isfinite(y.float()).all():
             raise AssertionError(f"{name}: bad logits {tuple(y.shape)}")
@@ -3373,7 +3457,7 @@ def tuned_prefill_phase(report, card):
             f"ms/batch, {LONGCTX_BATCH * S / ms * 1e3:.0f} tokens/s, "
             f"launches {counts} | {card}")
         del net
-    # the tuned net's logits against the dense net's (flash_bf16 against
+    # the tuned net's logits against the dense net's (flash_wgmma against
     # the dense bf16 attention where the tuner took flash)
     scale = float(logits["dense"].abs().max())
     err = float((logits["tuned"] - logits["dense"]).abs().max())
@@ -6249,6 +6333,7 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "Compiling" in line \
                     or "C75" in line:  # ptxas's wgmma serialization notes
                 log(f"[build]   {line.strip()}")
+    check_ptxas(built["flash_attention"][2], "flash_wgmma")
     # the instructions the depthwise and fused-block kernels spend, counted
     # in their SASS
     for name in ("depthwise3x3_int8", "bottleneck_int8"):
