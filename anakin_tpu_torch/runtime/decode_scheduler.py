@@ -57,6 +57,34 @@ active slot's position at the window's end; `"off"` reads every row.
 
 `device=None` means CUDA.
 
+Tracing: the scheduler records its work as spans on the host clock
+(`runtime.profiler.SpanRecorder`, `sched.spans`; always on, nothing per
+token or per graph node):
+
+  * `window` (attributes view, K, active, k_done), with children
+    `window.build` (the capture, at first use only), `window.launch` (the
+    feed's copies and the replay call: its children `window.launch.fill`
+    and `.replay`, `runtime.graphs`), `window.readback` (until the
+    tokens are on the host) and `window.emit` (the host mirrors, the
+    tokens handed out, finished requests; `callback_ns`: the time inside
+    `on_token` and the futures' callbacks);
+  * `admission`, one a bucket dispatch (attributes L, slots, rows_real =
+    the prompts' tokens, rows_launched = B x L), with children
+    `admission.build`, `admission.enqueue` (the prefill net and the cache
+    rows' copies), `admission.readback` and `admission.emit`;
+  * `step` and `chunk` (the per-step decode, the chunk step; children
+    `.build`, `.fill`, `.replay`), `admit` (slots assigned), `idle`
+    (waiting for work, one span however long the wait);
+  * `request`, one a request when it ends: from its submission to its end,
+    with the times (perf_counter_ns) its admission dispatch started
+    (`dispatch`) and its first token came (`first`), its prompt length,
+    tokens and finish reason.
+
+`phase_seconds` reads those spans: "window" sums the `window` spans and
+"prefill" the `admission` spans, each up to its `.emit` child, and the
+`chunk` spans whole; "step" sums the `step` spans.  `builds` counts the
+nets and captures made at first use, by kind.
+
 Tensor parallelism (`mesh=`, a `parallel.Mesh`; every rank of it builds the
 same scheduler): the nets run as the JAX scheduler builds them under a
 mesh, with the Megatron rules of `parallel.shard_graph_params` and the KV
@@ -104,6 +132,7 @@ from ..quant import weight_only_quantize
 from .generate import prefill_attention_impl, prefill_bucket
 from .graphs import EagerStep, compile_step
 from .net import Net, _check_mesh, _resolve_device
+from .profiler import SpanRecorder
 
 __all__ = ["DecodeScheduler", "device_sample", "sample_token"]
 
@@ -206,7 +235,8 @@ def device_sample(logits: torch.Tensor, seed: int, rid: torch.Tensor,
 class _Slot:
     __slots__ = ("future", "prompt", "fed", "generated", "max_new",
                  "tokens", "temperature", "top_k", "top_p", "stop_set",
-                 "on_token", "rid", "rng", "finish_reason")
+                 "on_token", "rid", "rng", "finish_reason", "t_submit",
+                 "t_dispatch", "t_first")
 
     def __init__(self, future, prompt, max_new, temperature=0.0,
                  top_k=0, top_p=0.0, stop_tokens=(), on_token=None,
@@ -226,6 +256,11 @@ class _Slot:
         # per-request host RNG: draws depend only on (seed, rid, step)
         self.rng = np.random.default_rng([seed, rid])
         self.finish_reason: Optional[str] = None
+        # perf_counter_ns: submitted, its admission dispatch began, first
+        # token handed out
+        self.t_submit = time.perf_counter_ns()
+        self.t_dispatch: Optional[int] = None
+        self.t_first: Optional[int] = None
 
 
 class DecodeScheduler:
@@ -317,8 +352,15 @@ class DecodeScheduler:
         self.fused_windows_run = 0
         self.bucket_prefills_run = 0
         self.tokens_served = 0
-        # wall seconds of fused windows, prefill and per-step decode
+        # wall seconds of fused windows, prefill and per-step decode, read
+        # from the spans (module docstring)
         self.phase_seconds = {"window": 0.0, "prefill": 0.0, "step": 0.0}
+        # nets built and steps captured at first use
+        self.builds = {"bucket": 0, "view": 0, "window": 0, "step": 0,
+                       "chunk": 0}
+        self.spans = SpanRecorder()
+        self._callback_ns = 0      # inside on_token and future callbacks
+        self._idle_t0 = None       # the current run of idle waits began
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -328,7 +370,8 @@ class DecodeScheduler:
         as static inputs (written in place, never copied), as `Net.compile`
         binds them for the per-step decode; eager under a mesh."""
         make = compile_step if self.mesh is None else EagerStep
-        return make(fn, dict(feed, **self._caches), self._caches, self.device)
+        return make(fn, dict(feed, **self._caches), self._caches, self.device,
+                    self.spans)
 
     def _cache_split(self) -> int:
         """The ranks the caches' heads split over (1: whole)."""
@@ -422,8 +465,7 @@ class DecodeScheduler:
         if self._leader:
             if (all(s is None for s in self._slots) and self._queue.empty()
                     and not self._stop):
-                self._wake.wait(timeout=0.1)
-                self._wake.clear()
+                self._wait_for_work()
             new = []
             while True:
                 try:
@@ -443,7 +485,7 @@ class DecodeScheduler:
         for s in new:
             self._admitq.put(s)
         for b in plan["cancel"]:
-            self._slots[b].finish_reason = "cancelled"
+            self._end_request(self._slots[b], "cancelled")
             self._slots[b] = None
         return not plan["stop"]
 
@@ -458,7 +500,30 @@ class DecodeScheduler:
         return lead
 
     # -------------------------------------------------------------- loop
+    def _wait_for_work(self) -> None:
+        """Wait (at most 0.1 s) for a submission; a run of such waits is
+        one `idle` span, recorded when work comes (`_end_idle`)."""
+        if self._idle_t0 is None:
+            self._idle_t0 = time.perf_counter_ns()
+        self._wake.wait(timeout=0.1)
+        self._wake.clear()
+
+    def _end_idle(self) -> None:
+        if self._idle_t0 is not None:
+            self.spans.add("idle", self._idle_t0, time.perf_counter_ns())
+            self._idle_t0 = None
+
+    def _end_request(self, slot: _Slot, reason: str) -> None:
+        """The request is over: its one `request` record."""
+        slot.finish_reason = reason
+        self.spans.add("request", slot.t_submit, time.perf_counter_ns(),
+                       rid=slot.rid, dispatch=slot.t_dispatch,
+                       first=slot.t_first, prompt=len(slot.prompt),
+                       tokens=slot.generated, reason=reason)
+
     def _admit(self) -> None:
+        t0 = time.perf_counter_ns()
+        admitted = 0
         for b in range(self.B):
             if self._slots[b] is not None:
                 continue
@@ -466,43 +531,57 @@ class DecodeScheduler:
                 try:
                     req = self._admitq.get_nowait()
                 except queue.Empty:
-                    return
+                    req = None
+                    break
                 # under a mesh a cancellation takes effect through the plan
                 if self.mesh is not None or not req.future.cancelled():
                     break
+                self._end_request(req, "cancelled")
+            if req is None:
+                break
             self._slots[b] = req
             # the slot restarts at position 0 (rows past pos are never read)
             self._pos[b] = 0
             req.fed = 0
+            admitted += 1
+        if admitted:
+            self.spans.add("admit", t0, time.perf_counter_ns(),
+                           slots=admitted)
 
     def _reap_cancelled(self) -> None:
         """Evict slots whose future was cancelled."""
         for b, slot in enumerate(self._slots):
             if slot is not None and slot.future.cancelled():
-                slot.finish_reason = "cancelled"
+                self._end_request(slot, "cancelled")
                 self._slots[b] = None
 
     def _finish(self, b: int, slot: _Slot, reason: str = "length") -> None:
-        slot.finish_reason = reason
+        self._end_request(slot, reason)
         self._slots[b] = None
         if slot.future.cancelled():
             return
+        t0 = time.perf_counter_ns()
         try:
             slot.future.set_result(
                 np.concatenate([slot.prompt,
                                 np.asarray(slot.tokens, np.int32)]))
         except Exception:                       # racing cancel
             pass
+        self._callback_ns += time.perf_counter_ns() - t0
 
     def _emit(self, slot: _Slot, tok: int) -> None:
         slot.tokens.append(tok)
         slot.generated += 1
         self.tokens_served += 1
+        if slot.generated == 1:
+            slot.t_first = time.perf_counter_ns()
         if slot.on_token is not None:
+            t0 = time.perf_counter_ns()
             try:
                 slot.on_token(tok)
             except Exception:                   # a stream sink must not
                 _log.exception("on_token callback failed")  # stop serving
+            self._callback_ns += time.perf_counter_ns() - t0
 
     def _sample_and_store(self, picks) -> None:
         """Sample each (slot index, slot, logit row) of a step, agree on
@@ -530,6 +609,8 @@ class DecodeScheduler:
         _log.exception("device step failed; resetting scheduler arena",
                        exc_info=exc)
         failed = [s for s in self._slots if s is not None]
+        for slot in failed:
+            self._end_request(slot, "failed")
         self._slots = [None] * self.B
         for c in self._caches.values():
             c.zero_()
@@ -550,8 +631,11 @@ class DecodeScheduler:
         try:
             if self._step_run is None:
                 net = self.net
-                self._step_run = self._compile(
-                    lambda x: net.forward(net.params, x, net.prepared), feed)
+                with self.spans.span("step.build"):
+                    self._step_run = self._compile(
+                        lambda x: net.forward(net.params, x, net.prepared),
+                        feed)
+                self.builds["step"] += 1
             out = self._step_run(feed)
             logits = out[self._logits_edge].to(torch.float32).cpu().numpy()
         except Exception as e:
@@ -598,18 +682,22 @@ class DecodeScheduler:
 
         def run(ids, nreal, slots):
             feed = {"input": ids, "nreal": nreal}
-            if self.mesh is None:
-                out = pnet.prediction(feed)
-            else:  # the caches stay the rank's heads
-                with torch.inference_mode():
-                    out = pnet.forward(pnet.params, {
-                        k: torch.from_numpy(v).to(self.device)
-                        for k, v in feed.items()}, pnet.prepared)
-            idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-            for name, e in edges.items():
-                cache = self._caches[name]
-                cache[idx] = out[e][idx].to(cache.dtype)
-            return out[logits_e][:, 0, :].to(torch.float32).cpu().numpy()
+            with self.spans.span("admission.enqueue"):
+                if self.mesh is None:
+                    out = pnet.prediction(feed)
+                else:  # the caches stay the rank's heads
+                    with torch.inference_mode():
+                        out = pnet.forward(pnet.params, {
+                            k: torch.from_numpy(v).to(self.device)
+                            for k, v in feed.items()}, pnet.prepared)
+                idx = torch.as_tensor(slots, dtype=torch.int64,
+                                      device=self.device)
+                for name, e in edges.items():
+                    cache = self._caches[name]
+                    cache[idx] = out[e][idx].to(cache.dtype)
+                logits = out[logits_e][:, 0, :].to(torch.float32)
+            with self.spans.span("admission.readback"):
+                return logits.cpu().numpy()
 
         return run
 
@@ -629,30 +717,39 @@ class DecodeScheduler:
                 prompt = self._slots[b].prompt
                 ids[b, :len(prompt)] = prompt
                 nreal[b] = len(prompt)
-            t0 = time.perf_counter()
-            try:
-                run = self._prefill_runs.get(L)
-                if run is None:
-                    run = self._make_prefill_run(L)
-                    self._prefill_runs[L] = run
-                rows = run(ids, nreal, slots_b)  # the dispatch's one fetch
-            except Exception as e:
-                self._fail_active(e)
-                return
-            self.phase_seconds["prefill"] += time.perf_counter() - t0
-            self.steps_run += 1
-            self.prefill_steps_run += 1
-            self.bucket_prefills_run += 1
-            picks = []
-            for b in slots_b:
-                slot = self._slots[b]
-                if slot is None:
-                    continue
-                P = len(slot.prompt)
-                slot.fed = P
-                self._pos[b] = P
-                picks.append((b, slot, rows[b]))
-            self._sample_and_store(picks)
+            with self.spans.span("admission", L=L, slots=len(slots_b),
+                                 rows_real=int(nreal[slots_b].sum()),
+                                 rows_launched=self.B * L) as adm:
+                for b in slots_b:
+                    self._slots[b].t_dispatch = adm.t0
+                try:
+                    run = self._prefill_runs.get(L)
+                    if run is None:
+                        with self.spans.span("admission.build"):
+                            run = self._make_prefill_run(L)
+                        self._prefill_runs[L] = run
+                        self.builds["bucket"] += 1
+                    rows = run(ids, nreal, slots_b)  # the dispatch's one fetch
+                except Exception as e:
+                    self._fail_active(e)
+                    return
+                with self.spans.span("admission.emit") as em:
+                    cb0 = self._callback_ns
+                    self.steps_run += 1
+                    self.prefill_steps_run += 1
+                    self.bucket_prefills_run += 1
+                    picks = []
+                    for b in slots_b:
+                        slot = self._slots[b]
+                        if slot is None:
+                            continue
+                        P = len(slot.prompt)
+                        slot.fed = P
+                        self._pos[b] = P
+                        picks.append((b, slot, rows[b]))
+                    self._sample_and_store(picks)
+                    em.attrs["callback_ns"] = self._callback_ns - cb0
+            self.phase_seconds["prefill"] += (em.t0 - adm.t0) * 1e-9
 
     # ------------------------------------------------------ chunked prefill
     def _make_vrun(self, feed):
@@ -691,7 +788,9 @@ class DecodeScheduler:
         feed = {"input": ids, "pos": self._pos.copy(), "nreal": nreal}
         try:
             if self._vrun is None:
-                self._vrun = self._make_vrun(feed)
+                with self.spans.span("chunk.build"):
+                    self._vrun = self._make_vrun(feed)
+                self.builds["chunk"] += 1
             rows = self._vrun(feed)["rows"].cpu().numpy()  # the chunk's fetch
         except Exception as e:
             self._fail_active(e)
@@ -776,6 +875,7 @@ class DecodeScheduler:
                      for i in range(self.cfg.layers)]
             ent = (self._make_net(g), g.outputs[0], edges)
             self._view_nets[view] = ent
+            self.builds["view"] += 1
         return ent
 
     def _view_bucket(self, need: int) -> int:
@@ -817,27 +917,43 @@ class DecodeScheduler:
         feed = dict(tok=self._tok.copy(), pos=self._pos.copy(), rem=rem,
                     rid=rid, gen0=gen0, temp=temp, topk=topk, topp=topp,
                     stop_ids=stop_ids)
-        t0 = time.perf_counter()
-        try:
-            run = self._fused_runs.get((sampling, view))
-            if run is None:
-                run = self._compile(self._window_fn(K, sampling, view), feed)
-                self._fused_runs[(sampling, view)] = run
-            packed = self._agree(run(feed)["packed"].cpu().numpy())
-        except Exception as e:
-            self._fail_active(e)
-            return
-        self.phase_seconds["window"] += time.perf_counter() - t0
-        toks, k_done = packed[:-1], int(packed[-1, 0])
-        self.steps_run += k_done
-        self.fused_windows_run += 1
+        active = sum(s is not None for s in self._slots)
+        with self.spans.span("window", view=view, K=K,
+                             active=active) as win:
+            try:
+                run = self._fused_runs.get((sampling, view))
+                if run is None:
+                    with self.spans.span("window.build"):
+                        run = self._compile(self._window_fn(K, sampling, view),
+                                            feed)
+                    self._fused_runs[(sampling, view)] = run
+                    self.builds["window"] += 1
+                with self.spans.span("window.launch"):
+                    out = run(feed)["packed"]
+                with self.spans.span("window.readback"):
+                    packed = self._agree(out.cpu().numpy())
+            except Exception as e:
+                self._fail_active(e)
+                return
+            with self.spans.span("window.emit") as em:
+                cb0 = self._callback_ns
+                toks, k_done = packed[:-1], int(packed[-1, 0])
+                win.attrs["k_done"] = k_done
+                self.steps_run += k_done
+                self.fused_windows_run += 1
+                self._emit_window(toks, k_done, rem)
+                em.attrs["callback_ns"] = self._callback_ns - cb0
+        self.phase_seconds["window"] += (em.t0 - win.t0) * 1e-9
+
+    def _emit_window(self, toks: np.ndarray, k_done: int,
+                     rem: np.ndarray) -> None:
+        """A window's [K, B] tokens handed out: the host mirrors advance as
+        the device masking did (a slot is active for steps 0..n-1, n =
+        min(rem, first stop + 1), and k_done >= n for every slot)."""
         for b in range(self.B):
             slot = self._slots[b]
             if slot is None:
                 continue
-            # the host mirrors advance as the device masking did: a slot is
-            # active for steps 0..n-1, n = min(rem, first stop + 1), and
-            # k_done >= n for every slot
             n_active = 0
             stopped = False
             for t in range(min(int(rem[b]), k_done)):
@@ -868,35 +984,49 @@ class DecodeScheduler:
                     self._reap_cancelled()
                     if all(s is None for s in self._slots) \
                             and self._queue.empty():
-                        self._wake.wait(timeout=0.1)
-                        self._wake.clear()
+                        self._wait_for_work()
                         continue
                 elif not self._sync_plan():
                     break
+                if any(s is not None for s in self._slots) \
+                        or not self._admitq.empty():
+                    self._end_idle()
                 self._admit()
                 if all(s is None for s in self._slots):
                     continue
                 prefilling = any(s is not None and s.fed < len(s.prompt)
                                  for s in self._slots)
-                t0 = time.perf_counter()
                 if prefilling and self.prefill_mode == "bucket":
                     self._step_prefill_bucket()
                 elif prefilling and self.chunk > 1:
-                    self._step_prefill()
-                    self.phase_seconds["prefill"] += time.perf_counter() - t0
+                    self._timed("chunk", "prefill", self._step_prefill)
                 elif self._can_fuse():
                     self._step_fused()
                 else:
-                    if not (self.chunk > 1 and self.prefill_mode == "chunked"):
-                        # the per-step path (fuse_window <= 1, or chunk 1):
-                        # seed first tokens where needed
-                        for b, s in enumerate(self._slots):
-                            if s is not None and s.fed == 0:
-                                self._tok[b, 0] = s.prompt[0]
-                                s.fed = 1
-                    self._step_decode()
-                    self.phase_seconds["step"] += time.perf_counter() - t0
+                    self._timed("step", "step", self._step_seeded)
+        self._end_idle()
         # drain on close
         for slot in self._slots:
             if slot is not None and not slot.future.done():
+                self._end_request(slot, "cancelled")
                 slot.future.cancel()
+
+    def _timed(self, name: str, phase: str, fn) -> None:
+        """`fn()` as one top-level span, its time added to `phase`; the
+        requests it feeds for the first time dispatched at its start."""
+        with self.spans.span(name) as sp:
+            for s in self._slots:
+                if s is not None and s.t_dispatch is None:
+                    s.t_dispatch = sp.t0
+            fn()
+        self.phase_seconds[phase] += sp.seconds
+
+    def _step_seeded(self) -> None:
+        if not (self.chunk > 1 and self.prefill_mode == "chunked"):
+            # the per-step path (fuse_window <= 1, or chunk 1): seed first
+            # tokens where needed
+            for b, s in enumerate(self._slots):
+                if s is not None and s.fed == 0:
+                    self._tok[b, 0] = s.prompt[0]
+                    s.fed = 1
+        self._step_decode()

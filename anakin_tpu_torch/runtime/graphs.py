@@ -25,14 +25,22 @@ running any Python, so it counts nothing.
 
 On the CPU, `compile_step` returns the eager step behind the same call
 interface.  On CUDA a failed capture raises; nothing falls back to eager.
+
+Given a `profiler.SpanRecorder` (`spans=`), a call records its two parts
+as children of the span open around it: "<span>.fill" (the new values
+copied into the step's buffers) and "<span>.replay" (the graph's launch
+returning; the eager step's whole run on the CPU).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable
+import contextlib
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+
+from .profiler import SpanRecorder
 
 __all__ = ["CapturedStep", "EagerStep", "compile_step"]
 
@@ -83,17 +91,25 @@ class _Bound:
                 raise KeyError(f"{k!r} is not an input of this step")
 
 
+def _part(spans: Optional[SpanRecorder], suffix: str):
+    return spans.child(suffix) if spans is not None else \
+        contextlib.nullcontext()
+
+
 class EagerStep:
     """`fn` called eagerly behind `CapturedStep`'s interface (the CPU)."""
 
     def __init__(self, fn: Step, inputs: Dict[str, Any],
-                 static: Iterable[str], device: torch.device):
+                 static: Iterable[str], device: torch.device,
+                 spans: Optional[SpanRecorder] = None):
         self.fn = fn
         self._in = _Bound(inputs, static, device)
+        self.spans = spans
 
     def __call__(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        self._in.fill(inputs)
-        with torch.inference_mode():
+        with _part(self.spans, "fill"):
+            self._in.fill(inputs)
+        with _part(self.spans, "replay"), torch.inference_mode():
             return self.fn(self._in.args)
 
 
@@ -102,7 +118,8 @@ class CapturedStep:
     (see the module's docstring); `step(inputs)` replays it."""
 
     def __init__(self, fn: Step, inputs: Dict[str, Any],
-                 static: Iterable[str], device: torch.device):
+                 static: Iterable[str], device: torch.device,
+                 spans: Optional[SpanRecorder] = None):
         if device.type != "cuda":
             raise ValueError(f"CapturedStep captures on CUDA, not {device}")
         self.fn = fn
@@ -120,20 +137,24 @@ class CapturedStep:
                                   capture_error_mode="thread_local"):
                 self.outputs = fn(self._in.args)
         self.device = device
+        self.spans = spans
 
     def __call__(self, inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         with torch.cuda.device(self.device):
-            self._in.fill(inputs)
-            self.graph.replay()
+            with _part(self.spans, "fill"):
+                self._in.fill(inputs)
+            with _part(self.spans, "replay"):
+                self.graph.replay()
         return self.outputs
 
 
 def compile_step(fn: Step, inputs: Dict[str, Any], static: Iterable[str],
-                 device: torch.device):
+                 device: torch.device, spans: Optional[SpanRecorder] = None):
     """`fn(inputs) -> {name: tensor}` made replayable on `device` for the
     shapes and dtypes of `inputs`: a `CapturedStep` on CUDA, an
     `EagerStep` on the CPU.  `device` names its index on CUDA (`cuda:0`),
-    as `Net` resolves it; static inputs lie on that device."""
+    as `Net` resolves it; static inputs lie on that device.  `spans`: the
+    recorder a call records its parts in (module docstring)."""
     if device.type == "cuda":
-        return CapturedStep(fn, inputs, static, device)
-    return EagerStep(fn, inputs, static, device)
+        return CapturedStep(fn, inputs, static, device, spans)
+    return EagerStep(fn, inputs, static, device, spans)
